@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root, one CUDA card
+
+Phases; any failure exits non-zero:
+  1. environment: the card's name and power limit, torch and CUDA versions;
+     the CUDA kernels are built from ``src/repro_torch/kernels/csrc``.
+  2. every kernel against its plain PyTorch version on the card: flash
+     attention on the reference's ATTN_CASES and on the serving prefill
+     shape; int8 quantize / dequantize bit for bit on a full-width moment.
+  3. the main path, the serving restart: full-width starcoder2-3b (depth cut
+     from 30 to 2 layers, random weights from a seed, bf16) with a
+     training-layout state is saved through the burst buffer with int8
+     moments, restored onto the card, and serves 3 request batches; params
+     must come back bit-exact, moments within the int8 bound, tokens equal
+     to those served from the un-saved params, and every kernel of the path
+     must have launched (counts are zeroed just before and read just after).
+  4. numbers: save / restore seconds, prefill ms, decode tok/s, and a JSON
+     line with each kernel's launches, time, bound, plain-version time and
+     the time of one PyTorch library call for the same function.
+The last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+STEP = 1000
+BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 3
+LAYERS = 2                       # of starcoder2-3b's 30 (checkpoint size)
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
+# f32 FLOP/s outside the tensor cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+# the reference's ATTN_CASES (tests/test_kernels.py) with their tolerances,
+# plus the serving prefill shape: (B, Sq, Sk, H, KV, D, causal, window,
+# softcap, dtype, tol)
+ATTN_CASES = [
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, "float32", 2e-5),
+    (2, 96, 96, 4, 2, 32, True, 0, 0.0, "float32", 2e-5),
+    (1, 128, 128, 8, 2, 64, True, 48, 0.0, "float32", 2e-5),
+    (1, 64, 64, 2, 1, 128, False, 0, 0.0, "float32", 2e-5),
+    (1, 128, 128, 4, 4, 64, True, 0, 20.0, "float32", 2e-5),
+    (1, 128, 128, 4, 2, 64, True, 0, 0.0, "bfloat16", 3e-2),
+    (2, 80, 80, 4, 4, 48, True, 0, 0.0, "float32", 2e-5),
+]
+PREFILL_CASE = (BATCH, PROMPT, PROMPT, 24, 2, 128, True, 0, 0.0, "bfloat16",
+                3e-2)
+MOMENT_SHAPE = (LAYERS, 3072, 12288)   # the w_up moment leaf, f32
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak_flops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def environment():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+    # comparisons run in full f32 where they are f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"[build] {len(libs)} CUDA libraries ({', '.join(sorted(libs))}) "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    for stem, log in build.build_logs().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {stem}] {line.strip()}", flush=True)
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def _attn_inputs(case, gen):
+    import torch
+    b, sq, sk, h, kv, d, *_, dtype, _tol = case
+    dt = getattr(torch, dtype)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+    return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, d)
+
+
+def check_kernels(gen):
+    """Each kernel against its plain version on the same card inputs.
+    Returns the max error at the main path's shapes, by kernel."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as quant
+
+    err = {}
+    for case in ATTN_CASES + [PREFILL_CASE]:
+        *_, causal, window, cap, dtype, tol = case
+        q, k, v = _attn_inputs(case, gen)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
+        plain = ops.flash_chunked(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+        torch.cuda.synchronize()
+        # elementwise, as the reference's kernel tests hold it:
+        # |kernel - plain| <= tol + tol * |plain| at every element
+        diff = (out.float() - plain.float()).abs()
+        lim = tol + tol * plain.float().abs()
+        worst = torch.argmax(diff / lim).item()
+        e = diff.max().item()
+        print(f"[flash] {case[:10]}: max|kernel-plain| {e:.3e}; worst "
+              f"element {diff.view(-1)[worst].item():.3e} against its bound "
+              f"{lim.view(-1)[worst].item():.3e} (atol = rtol = {tol:g})",
+              flush=True)
+        check(torch.isfinite(out.float()).all().item(), f"flash {case}: "
+              f"non-finite output")
+        check(bool((diff <= lim).all()), f"flash {case}: error above "
+              f"atol = rtol = {tol:g} at element {worst}")
+        err["flash_attention"] = e          # the last case is the main path's
+
+    x = torch.randn(MOMENT_SHAPE, generator=gen, device="cuda") * 1e-3
+    flat = x.reshape(-1)
+    # one exact-tie block, as in the CPU tests: its scale is 1.0, so x/scale
+    # lands on .5 and round-half-to-even decides (2.5 -> 2, 3.5 -> 4,
+    # -0.5 -> -0); 127 and -126.5 sit at the clip
+    ties = torch.tensor([127.0, 2.5, 3.5, -0.5, -126.5, 0.0], device="cuda")
+    flat[:2048] = ties.repeat(2048 // ties.numel() + 1)[:2048]
+    q, s = quant.quantize_blockwise(flat)
+    qp, sp = ref.quantize_blockwise(flat)
+    torch.cuda.synchronize()
+    dq = (q.int() - qp.int()).abs().max().item()
+    ds = (s - sp).abs().max().item()
+    print(f"[quantize] {tuple(MOMENT_SHAPE)} f32 with one exact-tie block: "
+          f"max|q-q_plain| {dq}, "
+          f"max|scale-scale_plain| {ds:.3e} (tol 0: bit-identical)",
+          flush=True)
+    check(torch.equal(q, qp) and torch.equal(s, sp),
+          "quantize_blockwise differs from its plain version")
+    check(q[:6].tolist() == [127, 2, 4, 0, -126, 0] and s[0].item() == 1.0,
+          f"quantize_blockwise tie block: {q[:6].tolist()}, scale "
+          f"{s[0].item()}")
+    err["quantize_blockwise"] = float(max(dq, ds))
+
+    e = 0.0
+    for out_dtype in (torch.float32, torch.bfloat16):
+        xd = quant.dequantize_blockwise(q, s, out_dtype=out_dtype)
+        xp = ref.dequantize_blockwise(q, s).to(out_dtype)
+        torch.cuda.synchronize()
+        de = (xd.float() - xp.float()).abs().max().item()
+        print(f"[dequantize] -> {out_dtype}: max|kernel-plain| {de:.3e} "
+              f"(tol 0: bit-identical)", flush=True)
+        check(torch.equal(xd, xp), f"dequantize_blockwise ({out_dtype}) "
+              f"differs from its plain version")
+        e = max(e, de)
+    err["dequantize_blockwise"] = e
+    return err
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
+                    dram_capacity):
+    """The main path: build -> save a training-layout state through the
+    burst buffer (int8 moments) -> restore onto ``device`` -> serve.
+
+    Returns (timings, launches) where launches are the kernel counts of the
+    save -> restore -> serve run. Raises SystemExit on any mismatch."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.checkpoint.bbckpt import BBCheckpointManager
+    from repro_torch.core import BBConfig, BurstBufferSystem
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as quant
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.common import map_tree
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW
+
+    model = build_model(cfg)
+    params = model.init(SEED, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    prompts = [torch.randint(1, cfg.vocab_size, (batch, prompt),
+                             generator=gen, device=device)
+               for _ in range(requests)]
+    # tokens served from the un-saved params: the comparison, not counted
+    expected = [serve_batch(cfg, model, params, p, gen_tokens=gen_tokens)
+                for p in prompts]
+
+    # random moments stand in for trained ones (the update rule and the
+    # train step come with the training path)
+    opt = AdamW(lr=lambda step: 0.0).init(params)
+    for leaf in ser.tree_paths(opt.m):
+        leaf[1].normal_(0.0, 1e-3, generator=gen)
+    for leaf in ser.tree_paths(opt.v):
+        leaf[1].normal_(0.0, 1e-6, generator=gen)
+    state = {"params": params,
+             "opt_state": opt._replace(step=torch.tensor(
+                 STEP, dtype=torch.int32, device=device)),
+             "data": {"step": torch.tensor(STEP * batch, dtype=torch.int32,
+                                           device=device)}}
+    fresh = map_tree(torch.zeros_like, params)
+    target = {"params": fresh, "opt_state": AdamW(lr=None).init(fresh),
+              "data": {"step": torch.zeros((), dtype=torch.int32,
+                                           device=device)}}
+    print("[main] real optimizer moments wait for the training path: m, v "
+          "are seeded random tensors", flush=True)
+
+    for fn in (fa.flash_attention, quant.quantize_blockwise,
+               quant.dequantize_blockwise):
+        fn.launches = 0
+    t = {}
+    bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=dram_capacity)
+    with BurstBufferSystem(bbcfg) as bb:
+        mgr = BBCheckpointManager(bb, quantize=True)
+        t0 = time.perf_counter()
+        mgr.save(STEP, state)
+        t["save_s"] = time.perf_counter() - t0
+        t["ckpt_bytes"] = mgr.metrics[STEP]["bytes"]
+        mgr.wait_flushes(timeout=600.0)
+        t["flush_s"] = mgr.metrics[STEP].get("flush_s")
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(target)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t["restore_s"] = time.perf_counter() - t0
+        served = [serve_batch(cfg, model, restored["params"], p,
+                              gen_tokens=gen_tokens) for p in prompts]
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "quantize_blockwise": quant.quantize_blockwise.launches,
+                "dequantize_blockwise": quant.dequantize_blockwise.launches}
+
+    check(step == STEP, f"restored step {step} != {STEP}")
+    src = dict(ser.tree_paths(state))
+    got = dict(ser.tree_paths(restored))
+    check(list(got) == list(src), "restored tree has other leaves")
+    worst = 0.0
+    for name, leaf in src.items():
+        out = got[name]
+        check(out.device == leaf.device and out.dtype == leaf.dtype
+              and out.shape == leaf.shape, f"{name}: restored as {out.dtype}"
+              f" {tuple(out.shape)} on {out.device}")
+        if name.startswith("opt_state/.m/") or name.startswith(
+                "opt_state/.v/"):
+            err = (out - leaf).abs().max().item()
+            lim = leaf.abs().max().item() / 254 * (1 + 1e-4)
+            check(err <= lim, f"{name}: moment error {err} > {lim}")
+            worst = max(worst, err / max(lim, 1e-30))
+        else:
+            check(torch.equal(out, leaf), f"{name}: not bit-exact")
+    for r, (a, b) in enumerate(zip(served, expected)):
+        check(a.shape == (batch, gen_tokens), f"request {r}: {a.shape}")
+        check(torch.equal(a, b), f"request {r}: restored params served "
+              f"other tokens")
+    n_quant = sum(ser.default_quant_policy(n, leaf) for n, leaf in
+                  src.items())
+    print(f"[main] {len(src)} leaves ({n_quant} int8), {t['ckpt_bytes']} "
+          f"checkpoint bytes; params bit-exact, moments within "
+          f"{worst:.3f} of the half-step bound, {requests} x {batch} "
+          f"requests served {gen_tokens} tokens each equal to the un-saved "
+          f"params'", flush=True)
+    return t, launches, (model, restored["params"], prompts[0], n_quant)
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+def device_profile(what: str, fn):
+    """Run ``fn`` once under torch.profiler and print its wall time, the
+    device's busy time (sum of kernel and copy times) and top kernels. The
+    traced run is separate from the timed ones: tracing slows the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        print(f"[profile] {what}: wall {wall_ms:.3f} ms; device busy not "
+              f"measured (the profiler recorded no device events)",
+              flush=True)
+        return
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] {what}: wall {wall_ms:.3f} ms (traced), device busy "
+          f"{busy:.3f} ms = {100 * busy / wall_ms:.1f}% (idle "
+          f"{100 - 100 * busy / wall_ms:.1f}%); top: " + "; ".join(
+              f"{name[:60]} {ms:.3f} ms" for name, ms in top), flush=True)
+
+
+def time_serving(cfg, model, params, prompts, gen_tokens):
+    import torch
+    b, s = prompts.shape
+    with torch.inference_mode():
+        def run_prefill():
+            cache = model.init_cache(b, s + gen_tokens, device=prompts.device)
+            return model.prefill(params, cache, prompts)
+
+        def run_decode(logits, cache):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            for i in range(gen_tokens - 1):
+                logits, cache = model.decode_step(params, cache, tok, s + i)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        for _ in range(2):
+            run_prefill()
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            logits, cache = run_prefill()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        run_decode(logits, cache)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+
+        device_profile(f"prefill (B={b}, S={s})", run_prefill)
+        logits, cache = run_prefill()
+        device_profile(f"decode ({gen_tokens - 1} steps, B={b})",
+                       lambda: run_decode(logits, cache))
+    return prefill_ms, b * (gen_tokens - 1) / decode_s
+
+
+def kernel_line(gen, launches, err):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as quant
+
+    rows = []
+    b, s, _, h, kv, d, *_ = PREFILL_CASE
+    q, k, v = _attn_inputs(PREFILL_CASE, gen)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    pairs = b * h * s * (s + 1) // 2                 # causal (q, k) pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bms, by = bound(nbytes, 4 * d * pairs, BF16_FLOPS)
+    with torch.inference_mode():
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:80",
+            "launches": launches["flash_attention"],
+            "max_abs_err": err["flash_attention"],
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "plain_ms": cuda_ms(lambda: ops.flash_chunked(q, k, v,
+                                                          causal=True)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+        })
+        x = torch.randn(MOMENT_SHAPE, generator=gen,
+                        device="cuda").reshape(-1) * 1e-3
+        n = x.numel()
+        bms, by = bound(4 * n + n + 4 * n / 2048, 6 * n, F32_FLOPS)
+        rows.append({
+            "name": "quantize_blockwise", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:32",
+            "launches": launches["quantize_blockwise"],
+            "max_abs_err": err["quantize_blockwise"],
+            "ms": cuda_ms(lambda: quant.quantize_blockwise(x)),
+            "plain_ms": cuda_ms(lambda: ref.quantize_blockwise(x)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+        })
+        qx, sx = quant.quantize_blockwise(x)
+        bms, by = bound(n + 4 * n / 2048 + 4 * n, n, F32_FLOPS)
+        rows.append({
+            "name": "dequantize_blockwise", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:56",
+            "launches": launches["dequantize_blockwise"],
+            "max_abs_err": err["dequantize_blockwise"],
+            "ms": cuda_ms(lambda: quant.dequantize_blockwise(qx, sx)),
+            "plain_ms": cuda_ms(lambda: ref.dequantize_blockwise(qx, sx)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+        })
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
+                 "script needs an NVIDIA GPU")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+                 f"from a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+
+    environment()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    err = check_kernels(gen)
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config("starcoder2-3b")
+    cfg = dataclasses.replace(cfg, segments=((("attn",), LAYERS),))
+    print(f"[main] {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size},"
+          f" {cfg.param_dtype}), reduced: num_layers 30 -> {LAYERS}; "
+          f"{cfg.param_count()} params", flush=True)
+    t, launches, (model, params, prompts, n_quant) = serving_restart(
+        cfg, torch.device("cuda"), batch=BATCH, prompt=PROMPT,
+        gen_tokens=GEN, requests=REQUESTS, dram_capacity=2 << 30)
+    want = {"flash_attention": LAYERS * REQUESTS,
+            "quantize_blockwise": n_quant,
+            "dequantize_blockwise": n_quant}
+    print(f"[main] launches in save -> restore -> serve: {launches} "
+          f"(expected {want})", flush=True)
+    check(launches == want, f"launch counts {launches} != {want}")
+
+    prefill_ms, decode_tps = time_serving(cfg, model, params, prompts, GEN)
+    print(f"[numbers] save {t['save_s']:.3f}s (ingest of "
+          f"{t['ckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), flush "
+          f"{t['flush_s']}s (off the critical path), restore "
+          f"{t['restore_s']:.3f}s, prefill {prefill_ms:.2f} ms "
+          f"(B={BATCH}, S={PROMPT}), decode {decode_tps:.1f} tok/s "
+          f"(B={BATCH})", flush=True)
+    rows = kernel_line(gen, launches, err)
+    print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""Plain PyTorch oracles for the ported kernels. Small, obviously correct, f32.
+
+Counterparts of ``repro/kernels/ref.py``: ``flash_attention`` (naive
+full-matrix attention) and the blockwise int8 ``quantize_blockwise`` /
+``dequantize_blockwise``. ``chip_smoke.py`` holds the CUDA kernels against
+the plain versions beside their wrappers on the card; the CPU tests hold
+these against the JAX oracles and Pallas kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    q_offset=0):
+    """Naive full-matrix attention oracle.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KV, D). GQA via kv-head repetition.
+    ``q_offset``: absolute position of q[0] relative to k[0] (prefill=0).
+    """
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if kvh != h:
+        rep = h // kvh
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    qf = q.float() * (d ** -0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return o.to(q.dtype)
+
+
+def quantize_blockwise(x, block: int = 2048):
+    """Blockwise symmetric int8 quantization. x: flat (N,) with N % block == 0.
+
+    Returns (q int8 (N,), scales f32 (N/block,)). ``scale = max|x| / 127``
+    floored at 1e-12; ``q = clip(round_half_even(x / scale), -127, 127)``.
+    """
+    n = x.shape[0]
+    xb = x.float().reshape(n // block, block)
+    amax = xb.abs().amax(dim=1)
+    # divide by a tensor, not a Python scalar: on CUDA, torch turns division
+    # by a scalar into a product with its reciprocal, one ulp off IEEE
+    scale = amax / torch.full_like(amax, 127.0)
+    scale = torch.clamp_min(scale, 1e-12)
+    q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
+    return q.to(torch.int8).reshape(n), scale
+
+
+def dequantize_blockwise(q, scale, block: int = 2048):
+    n = q.shape[0]
+    xb = q.float().reshape(n // block, block) * scale[:, None]
+    return xb.reshape(n)

@@ -1,0 +1,139 @@
+"""Attention: GQA/MQA/MHA self-attention (global / sliding-window).
+
+Counterpart of ``repro/models/attention.py`` without cross-attention and
+without the mesh-only context-parallel constraint. Training/prefill runs
+the fused flash-attention op from ``repro_torch.kernels.ops`` (the CUDA
+kernel on the card, the chunked online softmax on the CPU). Decode attends
+one query token against a fixed-size ring-buffer KV cache in plain PyTorch,
+as the reference does in plain jnp.
+
+Unlike the reference, whose caches are immutable arrays (donated to the
+jitted decode step), the port writes the new token's K/V into the cache
+tensors in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import P, apply_rope, cfg_dtype
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# parameter descriptors
+
+
+def attn_descs(cfg):
+    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": P((d, h, hd), ("embed", "heads", "head_dim"), "fanin"),
+        "wk": P((d, kv, hd), ("embed", "kv_heads", "head_dim"), "fanin"),
+        "wv": P((d, kv, hd), ("embed", "kv_heads", "head_dim"), "fanin"),
+        "wo": P((h, hd, d), ("heads", "head_dim", "embed"), "fanin"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# projections
+
+
+def _proj(x, w):
+    """x: (B, S, d) @ w: (d, heads, hd) -> (B, S, heads, hd), contiguous."""
+    d, heads, hd = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(d, heads * hd)).view(
+        *x.shape[:-1], heads, hd)
+
+
+def _project_qkv(cfg, p, x):
+    return _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+
+
+def _out_proj(cfg, p, o):
+    h, hd, d = p["wo"].shape
+    return torch.matmul(o.reshape(*o.shape[:-2], h * hd),
+                        p["wo"].to(o.dtype).reshape(h * hd, d))
+
+
+# ---------------------------------------------------------------------------
+# train / prefill
+
+
+def self_attention(cfg, p, x, positions, *, window: int = 0,
+                   causal: bool = True, rope_theta: Optional[float] = None):
+    """x: (B, S, d); positions: (B, S) int. window=0 -> global."""
+    q, k, v = _project_qkv(cfg, p, x)
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    o = kops.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cfg.logit_softcap)
+    return _out_proj(cfg, p, o)
+
+
+# ---------------------------------------------------------------------------
+# decode (single new token against a KV cache)
+
+
+def init_self_cache(cfg, batch: int, max_seq: int, *, window: int = 0,
+                    device="cuda"):
+    """Ring-buffer KV cache. Local-attention layers only allocate the window."""
+    size = min(window, max_seq) if window else max_seq
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, size, kv, hd)
+    return {"k": torch.zeros(shape, dtype=cfg_dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=cfg_dtype(cfg), device=device)}
+
+
+def decode_self_attention(cfg, p, x, cache, pos: int, *, window: int = 0,
+                          rope_theta: Optional[float] = None):
+    """x: (B, 1, d); pos = number of tokens already cached.
+
+    The new token's KV is written in place at ``pos % cache_size`` (ring
+    semantics for windowed layers); attention runs over the whole buffer
+    with validity and window masking by absolute position.
+    """
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    if cfg.pos_embed == "rope":
+        pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos_b, theta)
+        k_new = apply_rope(k_new, pos_b, theta)
+
+    size = cache["k"].shape[1]
+    slot = pos % size
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+
+    # absolute position held by each ring slot after the write
+    idx = torch.arange(size, device=x.device)
+    n_written = pos + 1
+    wraps = torch.div(n_written + size - 1 - idx, size, rounding_mode="floor")
+    abs_pos = idx + (wraps - 1) * size
+    valid = (abs_pos >= 0) & (abs_pos < n_written)
+    if window:
+        valid &= abs_pos >= (pos - window + 1)
+
+    o = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
+    return _out_proj(cfg, p, o), cache
+
+
+def _cache_attend(cfg, q, k, v, valid):
+    """q: (B,1,H,D); k/v: (B,S,KV,D); valid: (S,) bool. f32 softmax."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg * (hd ** -0.5), k.float())
+    if cfg.logit_softcap:
+        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return o.reshape(b, 1, h, hd).to(q.dtype)

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither jax nor anything of the
+reference package, and it never runs on the CPU unless asked to."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quantize as quant
+from repro_torch.models.registry import build_model
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.launch.serve, "
+        "repro_torch.checkpoint.bbckpt, repro_torch.checkpoint.convert\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                         r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
+    offenders = [str(p.relative_to(SRC))
+                 for p in (SRC / "repro_torch").rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+def test_entry_points_refuse_cuda_without_a_card(no_cuda):
+    model = build_model(reduced(get_config("starcoder2-3b")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(0)                       # device defaults to "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init_cache(1, 8)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors(no_cuda):
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.quantize_blockwise(torch.zeros(2048))
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.dequantize_blockwise(torch.zeros(2048, dtype=torch.int8),
+                                   torch.ones(1))
+    assert fa.flash_attention.launches == 0
+    assert quant.quantize_blockwise.launches == 0

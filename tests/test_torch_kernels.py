@@ -1,0 +1,116 @@
+"""The port's plain kernel versions against the reference's Pallas kernels
+(interpret mode) on the same numpy inputs. The CUDA kernels themselves are
+held against these plain versions on the card by ``chip_smoke.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.quantize import (dequantize_blockwise_pallas,
+                                    quantize_blockwise_pallas)
+from repro_torch.kernels import ops, ref
+
+# the reference's ATTN_CASES (tests/test_kernels.py), with its tolerances:
+# (B, Sq, Sk, H, KV, D, causal, window, softcap, dtype, tol)
+ATTN_CASES = [
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, "float32", 2e-5),
+    (2, 96, 96, 4, 2, 32, True, 0, 0.0, "float32", 2e-5),
+    (1, 128, 128, 8, 2, 64, True, 48, 0.0, "float32", 2e-5),
+    (1, 64, 64, 2, 1, 128, False, 0, 0.0, "float32", 2e-5),
+    (1, 128, 128, 4, 4, 64, True, 0, 20.0, "float32", 2e-5),
+    (1, 128, 128, 4, 2, 64, True, 0, 0.0, "bfloat16", 3e-2),
+    (2, 80, 80, 4, 4, 48, True, 0, 0.0, "float32", 2e-5),  # ragged seq
+]
+
+# the plain versions: the chunked online softmax the CPU path runs (chunk 48
+# leaves a ragged last chunk in every case) and the naive oracle
+PLAIN = {
+    "chunked": lambda q, k, v, **kw: ops.flash_chunked(q, k, v, chunk=48,
+                                                       **kw),
+    "oracle": ref.flash_attention,
+}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    t = torch.from_numpy(a).to(getattr(torch, dtype))
+    return jnp.asarray(a, getattr(jnp, dtype)), t
+
+
+@pytest.mark.parametrize("plain", sorted(PLAIN))
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_plain_flash_matches_pallas_kernel(case, plain):
+    b, sq, sk, h, kv, d, causal, window, cap, dtype, tol = case
+    rng = np.random.default_rng(7)
+    qj, qt = _pair(rng.normal(size=(b, sq, h, d)).astype(np.float32), dtype)
+    kj, kt = _pair(rng.normal(size=(b, sk, kv, d)).astype(np.float32), dtype)
+    vj, vt = _pair(rng.normal(size=(b, sk, kv, d)).astype(np.float32), dtype)
+    exp = flash_attention_pallas(qj, kj, vj, causal=causal, window=window,
+                                 softcap=cap, block_q=64, block_k=64,
+                                 interpret=True)
+    out = PLAIN[plain](qt, kt, vt, causal=causal, window=window, softcap=cap)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+def test_flash_dispatch_on_cpu_is_the_chunked_plain_version():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 33, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 33, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 33, 2, 16)).astype(np.float32))
+    out = ops.flash_attention(q, k, v, causal=True, chunk=16)
+    torch.testing.assert_close(out, ops.flash_chunked(q, k, v, chunk=16),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, ref.flash_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def _moments(nblocks: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.02, nblocks * 2048).astype(np.float32)
+    # an exact-tie block: scale is 1.0, so x / scale lands on .5 and
+    # round-half-to-even decides (2.5 -> 2, 3.5 -> 4, -0.5 -> -0)
+    x[:2048] = np.resize(np.array([127.0, 2.5, 3.5, -0.5, -126.5, 0.0],
+                                  np.float32), 2048)
+    return x
+
+
+@pytest.mark.parametrize("nblocks,seed", [(1, 0), (3, 1), (64, 2)])
+def test_quantize_bit_identical_to_pallas_kernel(nblocks, seed):
+    x = _moments(nblocks, seed)
+    qj, sj = quantize_blockwise_pallas(jnp.asarray(x), interpret=True)
+    qr, sr = jref.quantize_blockwise(jnp.asarray(x))
+    qt, st = ops.quantize_blockwise(torch.from_numpy(x))
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qr))
+    # scales are bit-identical to the reference oracle (which the reference
+    # serializer runs off the TPU) and to IEEE division in numpy; the Pallas
+    # kernel in interpret mode lowers ``max|x| / 127.0`` to a product with
+    # the reciprocal and lands one ulp away in a few blocks (2 of 64 here)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sr))
+    amax = np.abs(x.reshape(nblocks, 2048)).max(axis=1)
+    np.testing.assert_array_equal(st.numpy(),
+                                  np.maximum(amax / np.float32(127.0),
+                                             np.float32(1e-12)))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=2 ** -23,
+                               atol=0)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_dequantize_bit_identical_to_pallas_kernel(out_dtype):
+    x = _moments(5, 4)
+    qj, sj = quantize_blockwise_pallas(jnp.asarray(x), interpret=True)
+    exp = dequantize_blockwise_pallas(qj, sj, interpret=True,
+                                      out_dtype=getattr(jnp, out_dtype))
+    out = ops.dequantize_blockwise(torch.tensor(np.asarray(qj)),
+                                   torch.tensor(np.asarray(sj)),
+                                   out_dtype=getattr(torch, out_dtype))
+    assert out.dtype == getattr(torch, out_dtype)
+    if out_dtype == "bfloat16":
+        exp = np.asarray(exp).view(np.int16)
+        out = out.view(torch.int16)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(exp))

@@ -1,0 +1,106 @@
+"""The serving restart end to end on the CPU, through both packages: a
+training-layout state is saved with ``quantize=True`` into a burst buffer,
+restored, and served. The port's run (its own ``repro_torch.core`` copy,
+``BBCheckpointManager`` and ``serve_batch``) must restore the same params
+and moments as the reference's and generate the same tokens; a restore
+after a server is killed must return the same state."""
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.checkpoint.bbckpt import BBCheckpointManager as JManager
+from repro.configs.base import get_config as jget_config
+from repro.configs.base import reduced as jreduced
+from repro.core import BBConfig as JBBConfig
+from repro.core import BurstBufferSystem as JBurstBufferSystem
+from repro.launch.serve import serve_batch as jserve_batch
+from repro.models.registry import build_model as jbuild_model
+from repro.optim.adamw import AdamWState as JAdamWState
+from repro_torch.checkpoint import serializer as ser
+from repro_torch.checkpoint.bbckpt import BBCheckpointManager
+from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.core import BBConfig, BurstBufferSystem
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models.registry import build_model
+from repro_torch.optim.adamw import AdamW
+
+ARCH = "starcoder2-3b"
+STEP = 40
+
+
+def _numpy_state(jparams, seed):
+    """Params from the reference's init; random moments (a trained state's
+    stand-in) so that quantization has work to do."""
+    rng = np.random.default_rng(seed)
+    params = jax.device_get(jparams)
+    moment = lambda scale: jax.tree.map(
+        lambda p: (rng.normal(0, scale, p.shape)).astype(np.float32), params)
+    return {"params": params,
+            "opt_state": JAdamWState(step=np.asarray(STEP, np.int32),
+                                     m=moment(1e-3), v=moment(1e-6)),
+            "data": {"step": np.asarray(STEP * 8, np.int32)}}
+
+
+def _leaves(tree):
+    return {n: leaf.numpy() for n, leaf in ser.tree_paths(tree)}
+
+
+def test_save_restore_serve_matches_reference():
+    jcfg = jreduced(jget_config(ARCH))
+    cfg = reduced(get_config(ARCH))
+    jmodel, model = jbuild_model(jcfg), build_model(cfg)
+    state = _numpy_state(jmodel.init(jax.random.PRNGKey(0)), seed=1)
+    prompts = np.random.default_rng(2).integers(1, cfg.vocab_size, (2, 24))
+
+    # the port: save -> restore -> serve, then restore again after a kill
+    bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=64 << 20,
+                     stabilize_interval=0.1)
+    with BurstBufferSystem(bbcfg) as bb:
+        mgr = BBCheckpointManager(bb, quantize=True)
+        mgr.save(STEP, params_from_numpy(state, device="cpu"),
+                 blocking_flush=True)
+        fresh = model.init(7, device="cpu")
+        target = {"params": fresh, "opt_state": AdamW(lr=None).init(fresh),
+                  "data": {"step": torch.zeros((), dtype=torch.int32)}}
+        restored, step = mgr.restore(target)
+        assert step == STEP
+        tokens = serve_batch(cfg, model, restored["params"],
+                             torch.as_tensor(prompts), gen_tokens=6)
+
+        bb.kill_server("server/1")
+        time.sleep(1.0)               # stabilization + client updates
+        for c in bb.clients:
+            c.put_timeout = 0.8
+        after_kill, _ = mgr.restore(target)
+
+    # the reference, from the same numpy state
+    with JBurstBufferSystem(JBBConfig(num_servers=4, num_clients=4,
+                                      dram_capacity=64 << 20)) as jbb:
+        jmgr = JManager(jbb, quantize=True)
+        jstate = jax.tree.map(jnp.asarray, state)
+        jmgr.save(STEP, jstate, blocking_flush=True)
+        jrestored, _ = jmgr.restore(jstate)
+        jtokens = jserve_batch(jcfg, jmodel, jrestored["params"],
+                               jnp.asarray(prompts, jnp.int32), gen_tokens=6)
+
+    got, after = _leaves(restored), _leaves(after_kill)
+    want = {n: np.asarray(leaf) for n, leaf in
+            ser.tree_paths(jax.device_get(jrestored))}
+    assert list(got) == list(want)
+    for name in want:
+        # params bit-exact, moments equal after dequantize, steps equal
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+        np.testing.assert_array_equal(after[name], want[name], err_msg=name)
+    src = dict(ser.tree_paths(state))
+    for name in src:
+        if name.startswith("params/"):
+            np.testing.assert_array_equal(got[name], src[name], err_msg=name)
+    # the moments went through int8: off the source by at most half a step
+    m = "opt_state/.m/embed/tokens"
+    err = np.abs(got[m] - src[m])
+    assert 0 < err.max() <= np.abs(src[m]).max() / 254 * (1 + 1e-4)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
