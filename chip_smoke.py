@@ -7,24 +7,35 @@ Phases; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
      the CUDA kernels are built from ``src/repro_torch/kernels/csrc``.
   2. every kernel against its plain PyTorch version on the card: flash
-     attention on the reference's ATTN_CASES and on the serving prefill
-     shape; int8 quantize / dequantize bit for bit on a full-width moment.
-  3. the main path, the serving restart: full-width starcoder2-3b (depth cut
-     from 30 to 2 layers, random weights from a seed, bf16) with a
-     training-layout state is saved through the burst buffer with int8
-     moments, restored onto the card, and serves 3 request batches; params
-     must come back bit-exact, moments within the int8 bound, tokens equal
-     to those served from the un-saved params, and every kernel of the path
-     must have launched (counts are zeroed just before and read just after).
-  4. numbers: save / restore seconds, prefill ms, decode tok/s, and a JSON
-     line with each kernel's launches, time, bound, plain-version time and
-     the time of one PyTorch library call for the same function.
+     attention on the reference's ATTN_CASES, small f32 and bf16
+     head-dim-256 cases and both serving prefill shapes (bf16 at head dim
+     256 within one bf16 ulp); the RG-LRU scan bit for bit at the
+     recurrentgemma prefill and decode shapes and a ragged f32 case; int8
+     quantize / dequantize bit for bit on a full-width moment.
+  3. the first path, the serving restart of slice 1: full-width
+     starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
+     seed, bf16) with a training-layout state is saved through the burst
+     buffer with int8 moments, restored onto the card, and serves 3 request
+     batches; params must come back bit-exact, moments within the int8
+     bound, tokens equal to those served from the un-saved params, and
+     every kernel of the path must have launched the expected number of
+     times (counts are zeroed just before and read just after).
+  3b. the second path, the serving restart of slice 2: full-width
+     recurrentgemma-9b (one repeat of each segment unit: 4 of 38 layers)
+     restarts from a params-only checkpoint and serves 3 request batches of
+     3072-token prompts (past the 2048-token window), with the same checks;
+     the RG-LRU kernel runs in every prefill and decode step.
+  4. numbers for both paths: save / restore seconds, prefill ms, decode
+     tok/s, a device profile, and a JSON line with each kernel's launches,
+     time, bound, plain-version time and the time of one PyTorch library
+     call for the same function.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +65,28 @@ ATTN_CASES = [
 PREFILL_CASE = (BATCH, PROMPT, PROMPT, 24, 2, 128, True, 0, 0.0, "bfloat16",
                 3e-2)
 MOMENT_SHAPE = (LAYERS, 3072, 12288)   # the w_up moment leaf, f32
+
+# slice 2: recurrentgemma-9b, a prompt past its 2048-token window
+RG_BATCH, RG_PROMPT, RG_GEN, RG_REQUESTS = 4, 3072, 32, 3
+RG_WINDOW, RG_HEADS, RG_HEAD_DIM, RG_WIDTH = 2048, 16, 256, 4096
+# bf16 output at head dim 256: the kernel and the plain version each round
+# one f32 result to bf16, so they may differ by one bf16 ulp, at most
+# 2^-7 |x|; atol = rtol = 8e-3 admits that at every magnitude
+# (8e-3 + 8e-3 |x| >= 2^-7 |x|) and nothing wider. At the prefill shape
+# outputs are ~0.03 (a 2048-key window); the small bf16 case's window of 8
+# keeps them near 1, where a key lost at a window or tile edge moves an
+# output by a tenth or more, far above its limit.
+D256_BF16_TOL = 8e-3
+RG_PREFILL_CASE = (RG_BATCH, RG_PROMPT, RG_PROMPT, RG_HEADS, 1, RG_HEAD_DIM,
+                   True, RG_WINDOW, 0.0, "bfloat16", D256_BF16_TOL)
+D256_CASES = [(2, 96, 96, 4, 1, 256, True, 32, 0.0, "float32", 2e-5),
+              (2, 96, 96, 4, 1, 256, True, 8, 0.0, "bfloat16", D256_BF16_TOL)]
+# RG-LRU scan: (B, S, D, dtype, h0), held bit for bit; prefill starts from
+# the zero state of a fresh cache, decode from the carried one
+RG_LRU_PREFILL = (RG_BATCH, RG_PROMPT, RG_WIDTH, "bfloat16", "zero")
+RG_LRU_DECODE = (RG_BATCH, 1, RG_WIDTH, "bfloat16", "normal")
+RG_LRU_CASES = [RG_LRU_PREFILL, RG_LRU_DECODE,
+                (2, 300, 384, "float32", "normal")]
 
 
 def fail(msg: str):
@@ -90,6 +123,18 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # ------------------------------------------------------------------ phase 1
 
 
+def _kernel_label(mangled: str) -> str:
+    """'flash_fwd_kernel<bf16, 256>' from a mangled template instance name;
+    other names unchanged."""
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled
+    name, args = m.groups()
+    dtype = "bf16" if "bfloat16" in args else \
+        "f32" if args.startswith("f") else args
+    return f"{name}<{', '.join([dtype] + re.findall(r'Li(\d+)E', args))}>"
+
+
 def environment():
     import torch
     smi = subprocess.run(
@@ -111,9 +156,13 @@ def environment():
     print(f"[build] {len(libs)} CUDA libraries ({', '.join(sorted(libs))}) "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
     for stem, log in build.build_logs().items():
+        entry = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {stem}] {line.strip()}", flush=True)
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = _kernel_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {stem}] {entry}: {line.strip()}", flush=True)
 
 
 # ------------------------------------------------------------------ phase 2
@@ -127,16 +176,29 @@ def _attn_inputs(case, gen):
     return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, d)
 
 
+def _rg_lru_inputs(case, gen):
+    """a in (0.7, 1), as the gates make it; gx and h0 small normals."""
+    import torch
+    b, s, d, dtype, h0_kind = case
+    dt = getattr(torch, dtype)
+    a = (0.7 + 0.299 * torch.rand((b, s, d), generator=gen,
+                                  device="cuda")).to(dt)
+    gx = (0.1 * torch.randn((b, s, d), generator=gen, device="cuda")).to(dt)
+    h0 = (0.1 * torch.randn((b, d), generator=gen, device="cuda")).to(dt)
+    return a, gx, (h0 if h0_kind == "normal" else h0.zero_())
+
+
 def check_kernels(gen):
     """Each kernel against its plain version on the same card inputs.
-    Returns the max error at the main path's shapes, by kernel."""
+    Returns the max error at the main paths' shapes, by kernel row."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as quant
+    from repro_torch.kernels import rg_lru
 
     err = {}
-    for case in ATTN_CASES + [PREFILL_CASE]:
+    for case in ATTN_CASES + D256_CASES + [PREFILL_CASE, RG_PREFILL_CASE]:
         *_, causal, window, cap, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -158,7 +220,31 @@ def check_kernels(gen):
               f"non-finite output")
         check(bool((diff <= lim).all()), f"flash {case}: error above "
               f"atol = rtol = {tol:g} at element {worst}")
-        err["flash_attention"] = e          # the last case is the main path's
+        if case == PREFILL_CASE:
+            err["flash_attention"] = e
+        if case == RG_PREFILL_CASE:
+            err["flash_attention_d256"] = e
+        del q, k, v, out, plain, diff, lim
+
+    e = 0.0
+    for case in RG_LRU_CASES:
+        a, gx, h0 = _rg_lru_inputs(case, gen)
+        h, h_last = rg_lru.rg_lru(a, gx, h0)
+        ph, ph_last = ref.rg_lru(a, gx, h0)
+        torch.cuda.synchronize()
+        de = max((h.float() - ph.float()).abs().max().item(),
+                 (h_last.float() - ph_last.float()).abs().max().item())
+        print(f"[rg_lru] {case}: max|kernel-plain| {de:.3e} (tol 0: "
+              f"bit-identical)", flush=True)
+        check(h.dtype == a.dtype and h.shape == a.shape
+              and h_last.shape == (a.shape[0], a.shape[2]),
+              f"rg_lru {case}: output {h.dtype} {tuple(h.shape)}")
+        check(torch.isfinite(h.float()).all().item(), f"rg_lru {case}: "
+              f"non-finite output")
+        check(torch.equal(h, ph) and torch.equal(h_last, ph_last),
+              f"rg_lru {case}: differs from its plain version")
+        e = max(e, de)
+    err["rg_lru"] = e
 
     x = torch.randn(MOMENT_SHAPE, generator=gen, device="cuda") * 1e-3
     flat = x.reshape(-1)
@@ -202,18 +288,22 @@ def check_kernels(gen):
 
 
 def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
-                    dram_capacity):
-    """The main path: build -> save a training-layout state through the
-    burst buffer (int8 moments) -> restore onto ``device`` -> serve.
+                    dram_capacity, train_state):
+    """A serving path: build -> save through the burst buffer -> restore
+    onto ``device`` -> serve. ``train_state``: the checkpoint is a
+    training-layout state (params, AdamW moments quantized to int8, steps);
+    otherwise params only, as a serving restart reads weights.
 
-    Returns (timings, launches) where launches are the kernel counts of the
-    save -> restore -> serve run. Raises SystemExit on any mismatch."""
+    Returns (timings, launches, ...) where launches are the kernel counts
+    of the save -> restore -> serve run. Raises SystemExit on any
+    mismatch."""
     import torch
     from repro_torch.checkpoint import serializer as ser
     from repro_torch.checkpoint.bbckpt import BBCheckpointManager
     from repro_torch.core import BBConfig, BurstBufferSystem
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as quant
+    from repro_torch.kernels import rg_lru
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models.common import map_tree
     from repro_torch.models.registry import build_model
@@ -230,27 +320,32 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     expected = [serve_batch(cfg, model, params, p, gen_tokens=gen_tokens)
                 for p in prompts]
 
-    # random moments stand in for trained ones (the update rule and the
-    # train step come with the training path)
-    opt = AdamW(lr=lambda step: 0.0).init(params)
-    for leaf in ser.tree_paths(opt.m):
-        leaf[1].normal_(0.0, 1e-3, generator=gen)
-    for leaf in ser.tree_paths(opt.v):
-        leaf[1].normal_(0.0, 1e-6, generator=gen)
-    state = {"params": params,
-             "opt_state": opt._replace(step=torch.tensor(
-                 STEP, dtype=torch.int32, device=device)),
-             "data": {"step": torch.tensor(STEP * batch, dtype=torch.int32,
-                                           device=device)}}
     fresh = map_tree(torch.zeros_like, params)
-    target = {"params": fresh, "opt_state": AdamW(lr=None).init(fresh),
-              "data": {"step": torch.zeros((), dtype=torch.int32,
-                                           device=device)}}
-    print("[main] real optimizer moments wait for the training path: m, v "
-          "are seeded random tensors", flush=True)
+    if train_state:
+        # random moments stand in for trained ones (the update rule and the
+        # train step come with the training path)
+        opt = AdamW(lr=lambda step: 0.0).init(params)
+        for leaf in ser.tree_paths(opt.m):
+            leaf[1].normal_(0.0, 1e-3, generator=gen)
+        for leaf in ser.tree_paths(opt.v):
+            leaf[1].normal_(0.0, 1e-6, generator=gen)
+        state = {"params": params,
+                 "opt_state": opt._replace(step=torch.tensor(
+                     STEP, dtype=torch.int32, device=device)),
+                 "data": {"step": torch.tensor(STEP * batch,
+                                               dtype=torch.int32,
+                                               device=device)}}
+        target = {"params": fresh, "opt_state": AdamW(lr=None).init(fresh),
+                  "data": {"step": torch.zeros((), dtype=torch.int32,
+                                               device=device)}}
+        print("[main] real optimizer moments wait for the training path: "
+              "m, v are seeded random tensors", flush=True)
+    else:
+        state, target = {"params": params}, {"params": fresh}
 
-    for fn in (fa.flash_attention, quant.quantize_blockwise,
-               quant.dequantize_blockwise):
+    kernels = (fa.flash_attention, rg_lru.rg_lru, quant.quantize_blockwise,
+               quant.dequantize_blockwise)
+    for fn in kernels:
         fn.launches = 0
     t = {}
     bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=dram_capacity)
@@ -269,9 +364,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         t["restore_s"] = time.perf_counter() - t0
         served = [serve_batch(cfg, model, restored["params"], p,
                               gen_tokens=gen_tokens) for p in prompts]
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "quantize_blockwise": quant.quantize_blockwise.launches,
-                "dequantize_blockwise": quant.dequantize_blockwise.launches}
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    del fresh, target
 
     check(step == STEP, f"restored step {step} != {STEP}")
     src = dict(ser.tree_paths(state))
@@ -297,11 +391,12 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
               f"other tokens")
     n_quant = sum(ser.default_quant_policy(n, leaf) for n, leaf in
                   src.items())
+    moments = (f", moments within {worst:.3f} of the half-step bound"
+               if train_state else "")
     print(f"[main] {len(src)} leaves ({n_quant} int8), {t['ckpt_bytes']} "
-          f"checkpoint bytes; params bit-exact, moments within "
-          f"{worst:.3f} of the half-step bound, {requests} x {batch} "
-          f"requests served {gen_tokens} tokens each equal to the un-saved "
-          f"params'", flush=True)
+          f"checkpoint bytes; params bit-exact{moments}, {requests} x "
+          f"{batch} requests served {gen_tokens} tokens each equal to the "
+          f"un-saved params'", flush=True)
     return t, launches, (model, restored["params"], prompts[0], n_quant)
 
 
@@ -366,40 +461,97 @@ def time_serving(cfg, model, params, prompts, gen_tokens):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
 
-        device_profile(f"prefill (B={b}, S={s})", run_prefill)
+        device_profile(f"{cfg.name} prefill (B={b}, S={s})", run_prefill)
         logits, cache = run_prefill()
-        device_profile(f"decode ({gen_tokens - 1} steps, B={b})",
+        device_profile(f"{cfg.name} decode ({gen_tokens - 1} steps, B={b})",
                        lambda: run_decode(logits, cache))
     return prefill_ms, b * (gen_tokens - 1) / decode_s
 
 
-def kernel_line(gen, launches, err):
+def _flash_row(name, case, gen, launches, err):
+    """Kernel, plain version and SDPA at one flash shape; the bound counts
+    the (q, k) pairs the causal and window masks leave."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import quantize as quant
 
-    rows = []
-    b, s, _, h, kv, d, *_ = PREFILL_CASE
-    q, k, v = _attn_inputs(PREFILL_CASE, gen)
+    b, s, _, h, kv, d, causal, window, *_ = case
+    q, k, v = _attn_inputs(case, gen)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    pairs = b * h * s * (s + 1) // 2                 # causal (q, k) pairs
+    per_row = [min(i + 1, window) if window else i + 1 for i in range(s)]
+    pairs = b * h * sum(per_row)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     bms, by = bound(nbytes, 4 * d * pairs, BF16_FLOPS)
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:80",
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                 window=window)),
+        "plain_ms": cuda_ms(lambda: ops.flash_chunked(q, k, v, causal=causal,
+                                                      window=window)),
+        "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library),
+    }
+
+
+def _rg_lru_time(case, gen):
+    """(kernel ms, plain ms, bound ms, bound by) at one scan shape: a, gx
+    and h0 read once, h and h_last written once; a multiply and an add per
+    element."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru
+
+    a, gx, h0 = _rg_lru_inputs(case, gen)
+    b, s, d = a.shape
+    n = b * s * d
+    nbytes = a.element_size() * (3 * n + 2 * b * d)
+    bms, by = bound(nbytes, 2 * n, F32_FLOPS)
+    plain_iters = 3 if s > 1 else 20
+    return (cuda_ms(lambda: rg_lru.rg_lru(a, gx, h0)),
+            cuda_ms(lambda: ref.rg_lru(a, gx, h0), iters=plain_iters,
+                    warmup=1),
+            bms, by)
+
+
+def kernel_line(gen, launches, rg_launches, err):
+    """One row per kernel at the main paths' shapes. ``launches`` are the
+    counts of the starcoder2-3b run, ``rg_launches`` those of the
+    recurrentgemma-9b run."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import quantize as quant
+
     with torch.inference_mode():
+        rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
+                           launches["flash_attention"],
+                           err["flash_attention"]),
+                _flash_row("flash_attention_d256", RG_PREFILL_CASE, gen,
+                           rg_launches["flash_attention"],
+                           err["flash_attention_d256"])]
+        ms, plain_ms, bms, by = _rg_lru_time(RG_LRU_PREFILL, gen)
+        dms, dplain_ms, dbms, dby = _rg_lru_time(RG_LRU_DECODE, gen)
         rows.append({
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:80",
-            "launches": launches["flash_attention"],
-            "max_abs_err": err["flash_attention"],
-            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-            "plain_ms": cuda_ms(lambda: ops.flash_chunked(q, k, v,
-                                                          causal=True)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "name": "rg_lru", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+            "replaces": "src/repro/kernels/rg_lru.py:48",
+            "launches": rg_launches["rg_lru"], "max_abs_err": err["rg_lru"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            # the same at the decode shape (B, 1, D), launched once a layer
+            # in every decode step
+            "decode_ms": dms, "decode_plain_ms": dplain_ms,
+            "decode_bound_ms": dbms, "decode_bound_by": dby,
         })
         x = torch.randn(MOMENT_SHAPE, generator=gen,
                         device="cuda").reshape(-1) * 1e-3
@@ -430,6 +582,10 @@ def kernel_line(gen, launches, err):
     return rows
 
 
+def _layers(cfg, kind):
+    return sum(unit.count(kind) * reps for unit, reps in cfg.segments)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -446,6 +602,7 @@ def main():
     gen.manual_seed(SEED)
     err = check_kernels(gen)
 
+    # phase 3: slice 1's path, starcoder2-3b from a training-layout state
     from repro_torch.configs.base import get_config
     cfg = get_config("starcoder2-3b")
     cfg = dataclasses.replace(cfg, segments=((("attn",), LAYERS),))
@@ -456,22 +613,61 @@ def main():
           f"{cfg.param_count()} params", flush=True)
     t, launches, (model, params, prompts, n_quant) = serving_restart(
         cfg, torch.device("cuda"), batch=BATCH, prompt=PROMPT,
-        gen_tokens=GEN, requests=REQUESTS, dram_capacity=2 << 30)
-    want = {"flash_attention": LAYERS * REQUESTS,
+        gen_tokens=GEN, requests=REQUESTS, dram_capacity=2 << 30,
+        train_state=True)
+    want = {"flash_attention": LAYERS * REQUESTS, "rg_lru": 0,
             "quantize_blockwise": n_quant,
             "dequantize_blockwise": n_quant}
     print(f"[main] launches in save -> restore -> serve: {launches} "
           f"(expected {want})", flush=True)
     check(launches == want, f"launch counts {launches} != {want}")
 
-    prefill_ms, decode_tps = time_serving(cfg, model, params, prompts, GEN)
-    print(f"[numbers] save {t['save_s']:.3f}s (ingest of "
-          f"{t['ckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), flush "
-          f"{t['flush_s']}s (off the critical path), restore "
-          f"{t['restore_s']:.3f}s, prefill {prefill_ms:.2f} ms "
-          f"(B={BATCH}, S={PROMPT}), decode {decode_tps:.1f} tok/s "
-          f"(B={BATCH})", flush=True)
-    rows = kernel_line(gen, launches, err)
+    # phase 3b: slice 2's path, recurrentgemma-9b from a params-only
+    # checkpoint; depth cut as the reference's reduced() cuts it
+    full = get_config("recurrentgemma-9b")
+    rg_cfg = dataclasses.replace(full, segments=tuple(
+        (unit, min(reps, 1)) for unit, reps in full.segments))
+    check(rg_cfg.resolved_head_dim == RG_HEAD_DIM
+          and rg_cfg.window_size == RG_WINDOW
+          and rg_cfg.lru_width == RG_WIDTH, "recurrentgemma-9b shapes")
+    print(f"[main] {rg_cfg.name} full width (d_model {rg_cfg.d_model}, "
+          f"{rg_cfg.num_heads} heads / {rg_cfg.num_kv_heads} kv, head_dim "
+          f"{rg_cfg.resolved_head_dim}, d_ff {rg_cfg.d_ff} GeGLU, lru_width "
+          f"{rg_cfg.lru_width}, conv {rg_cfg.conv1d_width}, window "
+          f"{rg_cfg.window_size}, vocab {rg_cfg.vocab_size}, "
+          f"{rg_cfg.param_dtype}), reduced: segments {full.segments} -> "
+          f"{rg_cfg.segments}, num_layers {full.num_layers} -> "
+          f"{rg_cfg.num_layers}; {rg_cfg.param_count()} params; prompt "
+          f"{RG_PROMPT} past the window", flush=True)
+    rg_t, rg_launches, (rg_model, rg_params, rg_prompts, rg_quant) = \
+        serving_restart(rg_cfg, torch.device("cuda"), batch=RG_BATCH,
+                        prompt=RG_PROMPT, gen_tokens=RG_GEN,
+                        requests=RG_REQUESTS, dram_capacity=4 << 30,
+                        train_state=False)
+    rg_want = {"flash_attention": _layers(rg_cfg, "attn_local")
+               * RG_REQUESTS,
+               "rg_lru": _layers(rg_cfg, "rglru") * RG_GEN * RG_REQUESTS,
+               "quantize_blockwise": rg_quant,
+               "dequantize_blockwise": rg_quant}
+    print(f"[main] launches in save -> restore -> serve: {rg_launches} "
+          f"(expected {rg_want})", flush=True)
+    check(rg_launches == rg_want, f"launch counts {rg_launches} != "
+          f"{rg_want}")
+
+    # phase 4: numbers
+    for name, tt, args, (b, s) in (
+            (cfg.name, t, (cfg, model, params, prompts, GEN),
+             (BATCH, PROMPT)),
+            (rg_cfg.name, rg_t, (rg_cfg, rg_model, rg_params, rg_prompts,
+                                 RG_GEN), (RG_BATCH, RG_PROMPT))):
+        prefill_ms, decode_tps = time_serving(*args)
+        print(f"[numbers] {name}: save {tt['save_s']:.3f}s (ingest of "
+              f"{tt['ckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
+              f"flush {tt['flush_s']}s (off the critical path), restore "
+              f"{tt['restore_s']:.3f}s, prefill {prefill_ms:.2f} ms "
+              f"(B={b}, S={s}), decode {decode_tps:.1f} tok/s (B={b})",
+              flush=True)
+    rows = kernel_line(gen, launches, rg_launches, err)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

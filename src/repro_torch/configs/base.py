@@ -13,6 +13,7 @@ stacked leading dimension.
 Layer kinds the port builds so far (see models/transformer.py registry):
   attn        global self-attention + dense MLP
   attn_local  sliding-window self-attention + dense MLP (same param shapes as attn)
+  rglru       RG-LRU recurrent block (Griffin) + dense MLP
 """
 from __future__ import annotations
 
@@ -125,7 +126,7 @@ def get_config(name: str) -> ModelConfig:
 def _load_all():
     # import every config module once so @register side effects run
     import importlib
-    for mod in ("starcoder2_3b", "gemma3_4b"):
+    for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -29,7 +29,11 @@
 //    max and row sum are warp shuffles.
 //  * Q (pre-scaled by d^-0.5 in f32), K and V tiles are staged in shared
 //    memory as f32 with a row pitch of D + 1 words, so the 16 lanes that
-//    read 16 different key rows at one d hit 16 different banks.
+//    read 16 different key rows at one d hit 16 different banks. At the
+//    largest head dim, D = 256 (gemma3, recurrentgemma), that is
+//    4 * (64 * 257 * 3 + 64 * 65) = 214,016 bytes, under the 232,448 a
+//    block may use, so one block runs per SM; the accumulator is then
+//    4 x 16 floats a thread.
 //  * The ragged key edge is masked in the kernel (kpos < Sk) instead of
 //    padding K/V in the wrapper; KV tiles that the causal / window masks
 //    hide from every row of the q tile are not visited (skipping them does
@@ -236,6 +240,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
     FLASH_CASE(48)
     FLASH_CASE(64)
     FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

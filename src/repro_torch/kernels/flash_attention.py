@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 48, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 

@@ -1,15 +1,17 @@
 """Public kernel API, dispatched by the device of the tensors:
 
 - CUDA tensors go to the hand-written Hopper kernels
-  (``flash_attention.py``, ``quantize.py``); if the kernel cannot take the
-  input, the wrapper raises. There is no fallback on the card.
+  (``flash_attention.py``, ``rg_lru.py``, ``quantize.py``); if the kernel
+  cannot take the input, the wrapper raises. There is no fallback on the
+  card.
 - CPU tensors go to plain PyTorch with the reference's structure:
   attention is an online softmax over KV chunks (the counterpart of
   ``repro/kernels/ops.py::_flash_chunked_jnp``), so it never holds the
-  S x S score matrix; quantization is ``ref.py``.
+  S x S score matrix; the RG-LRU scan and quantization are ``ref.py``.
 
-Counterpart of ``repro/kernels/ops.py`` for the three kernels the serving
-path runs (flash attention forward, blockwise int8 quantize / dequantize).
+Counterpart of ``repro/kernels/ops.py`` for the four kernels the serving
+paths run (flash attention forward, the RG-LRU scan, blockwise int8
+quantize / dequantize).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _quant
+from repro_torch.kernels import rg_lru as _rg_lru
 from repro_torch.kernels import ref
 
 NEG_INF = ref.NEG_INF
@@ -72,6 +75,17 @@ def flash_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence
+
+
+def rg_lru(a, gx, h0=None):
+    """h_t = a_t * h_{t-1} + gx_t. a/gx: (B,S,D) -> (h, h_last)."""
+    if a.is_cuda:
+        return _rg_lru.rg_lru(a, gx, h0)
+    return ref.rg_lru(a, gx, h0)
 
 
 # ---------------------------------------------------------------------------

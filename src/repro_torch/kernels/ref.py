@@ -1,10 +1,11 @@
 """Plain PyTorch oracles for the ported kernels. Small, obviously correct, f32.
 
 Counterparts of ``repro/kernels/ref.py``: ``flash_attention`` (naive
-full-matrix attention) and the blockwise int8 ``quantize_blockwise`` /
-``dequantize_blockwise``. ``chip_smoke.py`` holds the CUDA kernels against
-the plain versions beside their wrappers on the card; the CPU tests hold
-these against the JAX oracles and Pallas kernels.
+full-matrix attention), the RG-LRU scan ``rg_lru`` (sequential, f32 carry)
+and the blockwise int8 ``quantize_blockwise`` / ``dequantize_blockwise``.
+``chip_smoke.py`` holds the CUDA kernels against the plain versions beside
+their wrappers on the card; the CPU tests hold these against the JAX
+oracles and Pallas kernels.
 """
 from __future__ import annotations
 
@@ -41,6 +42,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return o.to(q.dtype)
+
+
+def rg_lru(a, gx, h0=None):
+    """Linear recurrence h_t = a_t * h_{t-1} + gx_t, a loop over t in f32.
+
+    a, gx: (B, S, D) (already gated/scaled inputs); h0: (B, D) or None.
+    Returns (h_seq (B,S,D), h_last (B,D)) in a's dtype. Each step rounds the
+    product before the add (two torch ops, never a fused multiply-add), as
+    the CUDA kernel does, so the two agree bit for bit on the card.
+    """
+    af, gf = a.float(), gx.float()
+    b, s, d = a.shape
+    h = (torch.zeros((b, d), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(s):
+        h = af[:, t] * h + gf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype), h.to(a.dtype)
 
 
 def quantize_blockwise(x, block: int = 2048):

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/models/transformer.py`` for the layer kinds ``attn``
 and ``attn_local`` (global and sliding-window self-attention with a dense
-MLP). A model = embedding -> [segments] -> final norm -> unembedding, where
-each segment repeats a fixed ``unit`` of layer kinds; the reference scans
-over the stacked layer dimension, the port loops over it in Python.
+MLP) and ``rglru`` (the Griffin recurrent block with a dense MLP). A model
+= embedding -> [segments] -> final norm -> unembedding, where each segment
+repeats a fixed ``unit`` of layer kinds; the reference scans over the
+stacked layer dimension, the port loops over it in Python.
 
 Caches are updated in place: ``prefill`` and ``decode_step`` write into the
 cache tensors they are given and return the same cache.
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import (apply_norm, apply_rope,
                                        cfg_param_dtype, embed_descs,
                                        embed_tokens, init_tree, map_tree,
@@ -95,9 +97,41 @@ def _make_attn_kind(*, window_attr=None, local_theta=False):
     return Kind(descs, apply, init_cache, decode, prefill)
 
 
+# ---------------------------------------------------------------------------
+# recurrent kind (RG-LRU block + dense FFN)
+
+
+def _rglru_descs(cfg):
+    return {"block": rglru_mod.rglru_descs(cfg), "norm2": norm_descs(cfg),
+            "mlp": mlp_descs(cfg)}
+
+
+def _rglru_apply(cfg, p, x, ext):
+    x = rglru_mod.apply_rglru_block(cfg, p["block"], x)
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(cfg, p["mlp"], h)
+
+
+def _rglru_cache(cfg, batch, max_seq, device):
+    return {"rec": rglru_mod.init_rglru_cache(cfg, batch, device)}
+
+
+def _rglru_decode(cfg, p, x, cache, ext):
+    x, c = rglru_mod.decode_rglru_block(cfg, p["block"], x, cache["rec"])
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(cfg, p["mlp"], h), {"rec": c}
+
+
+# prefill runs the decode block over the whole prompt (from the zero state
+# of a fresh cache) to obtain the final state, as the reference does
+_rglru_prefill = _rglru_decode
+
+
 KINDS: Dict[str, Kind] = {
     "attn": _make_attn_kind(),
     "attn_local": _make_attn_kind(window_attr="window_size", local_theta=True),
+    "rglru": Kind(_rglru_descs, _rglru_apply, _rglru_cache, _rglru_decode,
+                  _rglru_prefill),
 }
 
 

@@ -13,6 +13,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quantize as quant
+from repro_torch.kernels import rg_lru
 from repro_torch.models.registry import build_model
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -22,7 +23,10 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, "
-        "repro_torch.checkpoint.bbckpt, repro_torch.checkpoint.convert\n"
+        "repro_torch.checkpoint.bbckpt, repro_torch.checkpoint.convert, "
+        "repro_torch.models.rglru, repro_torch.kernels.rg_lru\n"
+        "from repro_torch.configs.base import get_config\n"
+        "get_config('recurrentgemma-9b')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -67,5 +71,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(no_cuda):
     with pytest.raises(ValueError, match="CUDA"):
         quant.dequantize_blockwise(torch.zeros(2048, dtype=torch.int8),
                                    torch.ones(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        rg_lru.rg_lru(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))
     assert fa.flash_attention.launches == 0
     assert quant.quantize_blockwise.launches == 0
+    assert rg_lru.rg_lru.launches == 0

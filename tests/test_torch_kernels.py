@@ -23,6 +23,12 @@ ATTN_CASES = [
     (1, 128, 128, 4, 2, 64, True, 0, 0.0, "bfloat16", 3e-2),
     (2, 80, 80, 4, 4, 48, True, 0, 0.0, "float32", 2e-5),  # ragged seq
 ]
+# head dim 256 (gemma3, recurrentgemma) with MQA (KV = 1) and a window of 8
+# at a small S, at the same tolerances
+D256_CASES = [
+    (1, 40, 40, 4, 1, 256, True, 8, 0.0, "float32", 2e-5),
+    (2, 40, 40, 4, 1, 256, True, 8, 0.0, "bfloat16", 3e-2),
+]
 
 # the plain versions: the chunked online softmax the CPU path runs (chunk 48
 # leaves a ragged last chunk in every case) and the naive oracle
@@ -40,7 +46,7 @@ def _pair(a: np.ndarray, dtype: str):
 
 
 @pytest.mark.parametrize("plain", sorted(PLAIN))
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + D256_CASES)
 def test_plain_flash_matches_pallas_kernel(case, plain):
     b, sq, sk, h, kv, d, causal, window, cap, dtype, tol = case
     rng = np.random.default_rng(7)

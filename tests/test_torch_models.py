@@ -17,8 +17,12 @@ from repro_torch.runtime.serve_step import greedy_token
 
 # f32 logits tolerance: one layer agrees to ~2e-6; random-init depth
 # amplifies last-ulp differences between XLA's and torch's f32 kernels about
-# threefold per layer, and reduced gemma3-4b has 7 layers (~2e-4 measured)
-ARCHS = {"starcoder2-3b": 1e-4, "gemma3-4b": 1e-3}
+# threefold per layer, and reduced gemma3-4b has 7 layers (~2e-4 measured).
+# Reduced recurrentgemma-9b has 4 layers (3 rglru, 1 attn_local); on the CPU
+# the reference's rglru layers run the associative scan and the port's the
+# sequential one, which round differently (1.1e-5 measured on the forward,
+# 3e-6 on prefill and decode)
+ARCHS = {"starcoder2-3b": 1e-4, "gemma3-4b": 1e-3, "recurrentgemma-9b": 1e-4}
 
 
 def _pair(arch):

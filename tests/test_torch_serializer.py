@@ -16,6 +16,8 @@ from repro.optim.adamw import AdamW as JAdamW
 from repro.optim.adamw import AdamWState as JAdamWState
 from repro_torch.checkpoint import serializer as ser
 from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -119,3 +121,23 @@ def test_leaf_names_match_reference_train_state():
     assert names[:2] == ["data/step", "opt_state/.step"]
     assert "opt_state/.m/segments/seg0/0/attn/wq" in names
     assert "params/segments/seg0/0/norm1/bias" in names
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b",
+                                  "recurrentgemma-9b"])
+def test_param_tree_matches_reference_through_serializer(arch):
+    """The port's own params of a reduced config have the reference's leaf
+    names, shapes and dtypes, and the reference's params carried into the
+    port serialize to the reference's payloads and manifest."""
+    jparams = jbuild_model(jreduced(jget_config(arch))).init(
+        jax.random.PRNGKey(0))
+    params = build_model(reduced(get_config(arch))).init(0, device="cpu")
+    jleaves = jser.tree_paths(jparams)
+    assert [(n, tuple(t.shape), ser.dtype_name(t.dtype))
+            for n, t in ser.tree_paths(params)] == \
+        [(n, tuple(a.shape), str(a.dtype)) for n, a in jleaves]
+    jpay, jman = jser.serialize_tree(jparams)
+    pay, man = ser.serialize_tree(
+        params_from_numpy(jax.device_get(jparams), device="cpu"))
+    assert ser.manifest_bytes(man) == jser.manifest_bytes(jman)
+    assert pay == jpay
