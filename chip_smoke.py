@@ -10,8 +10,10 @@ Phases; any failure exits non-zero:
      attention on the reference's ATTN_CASES, small f32 and bf16
      head-dim-256 cases and both serving prefill shapes (bf16 at head dim
      256 within one bf16 ulp); the RG-LRU scan bit for bit at the
-     recurrentgemma prefill and decode shapes and a ragged f32 case; int8
-     quantize / dequantize bit for bit on a full-width moment.
+     recurrentgemma prefill and decode shapes and a ragged f32 case; the
+     mLSTM forward at the reference's three test shapes (f32) and the
+     xlstm-350m training shape (bf16, within one bf16 ulp), its m bit for
+     bit; int8 quantize / dequantize bit for bit on a full-width moment.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -25,16 +27,28 @@ Phases; any failure exits non-zero:
      restarts from a params-only checkpoint and serves 3 request batches of
      3072-token prompts (past the 2048-token window), with the same checks;
      the RG-LRU kernel runs in every prefill and decode step.
-  4. numbers for both paths: save / restore seconds, prefill ms, decode
-     tok/s, a device profile, and a JSON line with each kernel's launches,
-     time, bound, plain-version time and the time of one PyTorch library
-     call for the same function.
+  3c. the third path, the training restart of slice 3: full-width
+     xlstm-350m (one repeat of its segment unit: 7 mLSTM + 1 sLSTM of 24
+     layers, f32 params) trains through ``launch/train.py::train_loop`` on
+     batches of 8 x 2048 tokens, deterministic: run A takes 8 steps; run B
+     takes 4, checkpoints through the burst buffer unquantized, loses
+     server/0, restores from the replicas into a state drawn from another
+     seed and takes 4 more. B's params and moments must equal A's bit for
+     bit. The step-8 state then goes through an int8-moment checkpoint:
+     params bit-exact, moments within the half-step bound. The mLSTM kernel
+     runs in every forward (7 launches a step).
+  4. numbers for each path, taken right after it (its model is freed before
+     the next path): save / restore seconds, prefill ms and decode tok/s
+     (serving), step time and tokens/s (training), a device profile; then a
+     JSON line with each kernel's launches, time, bound, plain-version time
+     and the time of one PyTorch library call for the same function.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -87,6 +101,23 @@ RG_LRU_PREFILL = (RG_BATCH, RG_PROMPT, RG_WIDTH, "bfloat16", "zero")
 RG_LRU_DECODE = (RG_BATCH, 1, RG_WIDTH, "bfloat16", "normal")
 RG_LRU_CASES = [RG_LRU_PREFILL, RG_LRU_DECODE,
                 (2, 300, 384, "float32", "normal")]
+
+# slice 3: xlstm-350m training, one repeat of its (mLSTM x 7, sLSTM) unit
+XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 8
+XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
+XL_DRAM = 2 << 30                     # a server's DRAM (~2.0 GB checkpoint)
+# mLSTM forward: (shape (B, S, H, D), chunk, dtype, atol, rtol). The
+# reference's kernel tests (tests/test_kernels.py) with their tolerances in
+# f32; the training shape in bf16 within one bf16 ulp (as D256_BF16_TOL);
+# m is compared within 1e-5 (the kernel and the plain version scan F in
+# one order, so it comes out equal)
+MLSTM_TRAIN_CASE = ((XL_BATCH, XL_SEQ, XL_HEADS, XL_HEAD_DIM), 128,
+                    "bfloat16", 8e-3, 8e-3)
+MLSTM_CASES = [((1, 128, 2, 32), 64, "float32", 5e-4, 1e-3),
+               ((2, 256, 1, 64), 128, "float32", 5e-4, 1e-3),
+               ((1, 192, 4, 16), 64, "float32", 5e-4, 1e-3),
+               MLSTM_TRAIN_CASE]
+MLSTM_M_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -188,12 +219,27 @@ def _rg_lru_inputs(case, gen):
     return a, gx, (h0 if h0_kind == "normal" else h0.zero_())
 
 
+def _mlstm_inputs(case, gen):
+    """q, k, v normal in the case's dtype; log_f = log(U(0.85, 0.999)) and
+    log_i = 0.5 N(0, 1) in f32, as the reference's kernel tests draw them."""
+    import torch
+    (b, s, h, d), _chunk, dtype, *_ = case
+    dt = getattr(torch, dtype)
+    mk = lambda: torch.randn((b, s, h, d), generator=gen,
+                             device="cuda").to(dt)
+    log_f = torch.log(0.85 + 0.149 * torch.rand((b, s, h), generator=gen,
+                                                 device="cuda"))
+    log_i = 0.5 * torch.randn((b, s, h), generator=gen, device="cuda")
+    return mk(), mk(), mk(), log_f, log_i
+
+
 def check_kernels(gen):
     """Each kernel against its plain version on the same card inputs.
     Returns the max error at the main paths' shapes, by kernel row."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import rg_lru
 
@@ -245,6 +291,35 @@ def check_kernels(gen):
               f"rg_lru {case}: differs from its plain version")
         e = max(e, de)
     err["rg_lru"] = e
+
+    for case in MLSTM_CASES:
+        shape, chunk, dtype, atol, rtol = case
+        x = _mlstm_inputs(case, gen)
+        h, (c, n, m) = mlstm.mlstm(*x, chunk=chunk)
+        ph, (pc, pn, pm) = ops.mlstm_chunked(*x, chunk=chunk)
+        torch.cuda.synchronize()
+        parts = []
+        for name, out, plain in (("h", h, ph), ("C", c, pc), ("n", n, pn)):
+            check(out.dtype == plain.dtype and out.shape == plain.shape,
+                  f"mlstm {case}: {name} {out.dtype} {tuple(out.shape)}")
+            check(torch.isfinite(out.float()).all().item(),
+                  f"mlstm {case}: non-finite {name}")
+            diff = (out.float() - plain.float()).abs()
+            lim = atol + rtol * plain.float().abs()
+            worst = torch.argmax(diff / lim).item()
+            parts.append(f"{name} max|kernel-plain| {diff.max().item():.3e}, "
+                         f"worst element {diff.reshape(-1)[worst].item():.3e}"
+                         f" of {lim.reshape(-1)[worst].item():.3e}")
+            check(bool((diff <= lim).all()), f"mlstm {case}: {name} above "
+                  f"atol {atol:g} + rtol {rtol:g} at element {worst}")
+            if name == "h" and case == MLSTM_TRAIN_CASE:
+                err["mlstm"] = diff.max().item()
+        dm = (m - pm).abs().max().item()
+        print(f"[mlstm] {shape} chunk {chunk} {dtype}: " + "; ".join(parts)
+              + f"; max|m-m_plain| {dm:.3e} (tol {MLSTM_M_TOL:g}; h, C, n at"
+              f" atol {atol:g}, rtol {rtol:g})", flush=True)
+        check(dm <= MLSTM_M_TOL, f"mlstm {case}: m differs by {dm}")
+        del x, h, c, n, m, ph, pc, pn, pm
 
     x = torch.randn(MOMENT_SHAPE, generator=gen, device="cuda") * 1e-3
     flat = x.reshape(-1)
@@ -301,9 +376,6 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     from repro_torch.checkpoint import serializer as ser
     from repro_torch.checkpoint.bbckpt import BBCheckpointManager
     from repro_torch.core import BBConfig, BurstBufferSystem
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import quantize as quant
-    from repro_torch.kernels import rg_lru
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models.common import map_tree
     from repro_torch.models.registry import build_model
@@ -343,8 +415,7 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     else:
         state, target = {"params": params}, {"params": fresh}
 
-    kernels = (fa.flash_attention, rg_lru.rg_lru, quant.quantize_blockwise,
-               quant.dequantize_blockwise)
+    kernels = _kernels()
     for fn in kernels:
         fn.launches = 0
     t = {}
@@ -368,6 +439,28 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     del fresh, target
 
     check(step == STEP, f"restored step {step} != {STEP}")
+    n_leaves, n_quant, worst = compare_restored(state, restored)
+    for r, (a, b) in enumerate(zip(served, expected)):
+        check(a.shape == (batch, gen_tokens), f"request {r}: {a.shape}")
+        check(torch.equal(a, b), f"request {r}: restored params served "
+              f"other tokens")
+    moments = (f", moments within {worst:.3f} of the half-step bound"
+               if train_state else "")
+    print(f"[main] {n_leaves} leaves ({n_quant} int8), {t['ckpt_bytes']} "
+          f"checkpoint bytes; params bit-exact{moments}, {requests} x "
+          f"{batch} requests served {gen_tokens} tokens each equal to the "
+          f"un-saved params'", flush=True)
+    return t, launches, (model, restored["params"], prompts[0], n_quant)
+
+
+def compare_restored(state, restored):
+    """Every leaf of ``restored`` against the saved ``state``: same device,
+    dtype and shape; AdamW moments within half an int8 step of their
+    block's scale (max|x| / 254, with f32 slack), everything else bit for
+    bit. Returns (leaves, int8 leaves, worst moment error as a share of its
+    bound)."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
     src = dict(ser.tree_paths(state))
     got = dict(ser.tree_paths(restored))
     check(list(got) == list(src), "restored tree has other leaves")
@@ -385,19 +478,104 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
             worst = max(worst, err / max(lim, 1e-30))
         else:
             check(torch.equal(out, leaf), f"{name}: not bit-exact")
-    for r, (a, b) in enumerate(zip(served, expected)):
-        check(a.shape == (batch, gen_tokens), f"request {r}: {a.shape}")
-        check(torch.equal(a, b), f"request {r}: restored params served "
-              f"other tokens")
     n_quant = sum(ser.default_quant_policy(n, leaf) for n, leaf in
                   src.items())
-    moments = (f", moments within {worst:.3f} of the half-step bound"
-               if train_state else "")
-    print(f"[main] {len(src)} leaves ({n_quant} int8), {t['ckpt_bytes']} "
-          f"checkpoint bytes; params bit-exact{moments}, {requests} x "
-          f"{batch} requests served {gen_tokens} tokens each equal to the "
-          f"un-saved params'", flush=True)
-    return t, launches, (model, restored["params"], prompts[0], n_quant)
+    return len(src), n_quant, worst
+
+
+def _kernels():
+    """Every kernel wrapper of the port; each counts its launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm
+    from repro_torch.kernels import quantize as quant
+    from repro_torch.kernels import rg_lru
+    return (fa.flash_attention, rg_lru.rg_lru, mlstm.mlstm,
+            quant.quantize_blockwise, quant.dequantize_blockwise)
+
+
+def training_restart(cfg, device):
+    """Slice 3's path through ``launch/train.py::train_loop``, deterministic
+    on the card: run A takes XL_STEPS steps; run B takes half of them,
+    checkpoints unquantized into a burst buffer, loses server/0, restores
+    from the replicas into a state drawn from another seed and takes the
+    rest. B must equal A bit for bit. A's final state then makes an
+    int8-moment checkpoint in a fresh burst buffer, restored onto the card.
+
+    Returns (timings, launches, n_quant); launches are the kernel counts of
+    the whole path. Raises SystemExit on any mismatch."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.checkpoint.bbckpt import BBCheckpointManager
+    from repro_torch.core import BBConfig, BurstBufferSystem
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.common import map_tree
+
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    t = {}
+    half = XL_STEPS // 2
+    kw = dict(global_batch=XL_BATCH, seq_len=XL_SEQ, log_every=1,
+              device=device)
+    bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=XL_DRAM)
+    state_a, hist_a, _ = train_loop(cfg, steps=XL_STEPS, ckpt_every=0,
+                                    seed=SEED, **kw)
+    with BurstBufferSystem(bbcfg) as bb:
+        _, hist_b, mgr = train_loop(cfg, steps=half, ckpt_every=half - 1,
+                                    bb_system=bb, quantize_ckpt=False,
+                                    seed=SEED, **kw)
+        t["save_s"] = mgr.metrics[half - 1]["ingest_s"]
+        t["ckpt_bytes"] = mgr.metrics[half - 1]["bytes"]
+        t["flush_s"] = mgr.metrics[half - 1].get("flush_s")
+        bb.kill_server("server/0")
+        print("[main] killed server/0; restoring from its replicas into a "
+              f"state drawn from seed {SEED + 1}", flush=True)
+        state_b, hist_b2, mgr = train_loop(cfg, steps=XL_STEPS, ckpt_every=0,
+                                           bb_system=bb, restore=True,
+                                           seed=SEED + 1, **kw)
+        t["restore_s"] = mgr.metrics[half - 1].get("restore_s")
+    check(t["restore_s"] is not None and [s for s, _ in hist_b2]
+          == list(range(half, XL_STEPS)), f"run B did not resume at step "
+          f"{half}: {hist_b2}")
+    check(hist_b + hist_b2 == hist_a, f"losses of run B {hist_b + hist_b2} "
+          f"!= run A's {hist_a}")
+    check(all(torch.isfinite(torch.tensor(l)) for _, l in hist_a),
+          f"non-finite loss: {hist_a}")
+    a_leaves = dict(ser.tree_paths(state_a))
+    b_leaves = dict(ser.tree_paths(state_b))
+    check(list(a_leaves) == list(b_leaves), "run B's state has other leaves")
+    for name, leaf in a_leaves.items():
+        check(torch.equal(leaf, b_leaves[name]), f"{name}: run B differs "
+              f"from the uninterrupted run A")
+    print(f"[main] losses {[round(l, 4) for _, l in hist_a]}; run B (kill, "
+          f"restore at step {half}) equals run A bit for bit in all "
+          f"{len(a_leaves)} leaves of params and AdamW state", flush=True)
+    del state_b, b_leaves
+
+    # the step-XL_STEPS state through an int8-moment checkpoint
+    state = {"params": state_a.params, "opt_state": state_a.opt_state,
+             "data": {"step": torch.tensor(XL_STEPS, dtype=torch.int32,
+                                           device=device)}}
+    target = map_tree(torch.zeros_like, state)
+    with BurstBufferSystem(bbcfg) as bb:
+        mgr = BBCheckpointManager(bb, quantize=True)
+        t0 = time.perf_counter()
+        mgr.save(XL_STEPS, state)
+        t["qsave_s"] = time.perf_counter() - t0
+        t["qckpt_bytes"] = mgr.metrics[XL_STEPS]["bytes"]
+        mgr.wait_flushes(timeout=600.0)
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(target)
+        torch.cuda.synchronize()
+        t["qrestore_s"] = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    check(step == XL_STEPS, f"restored step {step} != {XL_STEPS}")
+    n_leaves, n_quant, worst = compare_restored(state, restored)
+    print(f"[main] int8 checkpoint of the step-{XL_STEPS} state: {n_leaves} "
+          f"leaves ({n_quant} int8, real AdamW moments), {t['qckpt_bytes']} "
+          f"bytes; params bit-exact, moments within {worst:.3f} of the "
+          f"half-step bound", flush=True)
+    return t, launches, n_quant
 
 
 # ------------------------------------------------------------------ phase 4
@@ -468,6 +646,18 @@ def time_serving(cfg, model, params, prompts, gen_tokens):
     return prefill_ms, b * (gen_tokens - 1) / decode_s
 
 
+def serving_numbers(cfg, t, model, params, prompts, gen_tokens):
+    b, s = prompts.shape
+    prefill_ms, decode_tps = time_serving(cfg, model, params, prompts,
+                                          gen_tokens)
+    print(f"[numbers] {cfg.name}: save {t['save_s']:.3f}s (ingest of "
+          f"{t['ckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
+          f"flush {t['flush_s']}s (off the critical path), restore "
+          f"{t['restore_s']:.3f}s, prefill {prefill_ms:.2f} ms "
+          f"(B={b}, S={s}), decode {decode_tps:.1f} tok/s (B={b})",
+          flush=True)
+
+
 def _flash_row(name, case, gen, launches, err):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
     the (q, k) pairs the causal and window masks leave."""
@@ -505,10 +695,29 @@ def _flash_row(name, case, gen, launches, err):
     }
 
 
+def graph_ms(fn, calls: int = 200) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed and timed with CUDA events, so the
+    host's cost of each launch is not counted."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, iters=10, warmup=2) / calls
+
+
 def _rg_lru_time(case, gen):
     """(kernel ms, plain ms, bound ms, bound by) at one scan shape: a, gx
     and h0 read once, h and h_last written once; a multiply and an add per
-    element."""
+    element. At the decode shape (S = 1) each launch moves a few hundred
+    KB, so both times are device times from a CUDA graph of many calls."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rg_lru
 
@@ -517,17 +726,46 @@ def _rg_lru_time(case, gen):
     n = b * s * d
     nbytes = a.element_size() * (3 * n + 2 * b * d)
     bms, by = bound(nbytes, 2 * n, F32_FLOPS)
-    plain_iters = 3 if s > 1 else 20
-    return (cuda_ms(lambda: rg_lru.rg_lru(a, gx, h0)),
-            cuda_ms(lambda: ref.rg_lru(a, gx, h0), iters=plain_iters,
-                    warmup=1),
-            bms, by)
+    kernel = lambda: rg_lru.rg_lru(a, gx, h0)
+    plain = lambda: ref.rg_lru(a, gx, h0)
+    if s == 1:
+        return graph_ms(kernel), graph_ms(plain), bms, by
+    return (cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1), bms, by)
 
 
-def kernel_line(gen, launches, rg_launches, err):
+def _mlstm_row(gen, launches, err):
+    """The mLSTM kernel, its plain version and its bound at the training
+    shape: q, k, v and the gates read once, h, C, n and m written once; per
+    chunk of each (b, h) two (c x c x D) products (q k^T and the weighted
+    sum of v), of which the causal mask needs c (c + 1) / 2 of the c x c
+    (t, u) pairs, and two (c x D x D) products (q C and the update of C)."""
+    from repro_torch.kernels import mlstm, ops
+    (b, s, h, d), chunk, *_ = MLSTM_TRAIN_CASE
+    x = _mlstm_inputs(MLSTM_TRAIN_CASE, gen)
+    es = x[0].element_size()
+    nbytes = (es * 4 * b * s * h * d + 4 * 2 * b * s * h
+              + es * (b * h * d * d + b * h * d) + 4 * b * h)
+    pairs = chunk * (chunk + 1) // 2
+    flops = 2 * b * h * (s // chunk) * (2 * pairs * d + 2 * chunk * d * d)
+    bms, by = bound(nbytes, flops, BF16_FLOPS)
+    return {
+        "name": "mlstm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm.py:109",
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: mlstm.mlstm(*x, chunk=chunk), iters=5,
+                      warmup=1),
+        "plain_ms": cuda_ms(lambda: ops.mlstm_chunked(*x, chunk=chunk),
+                            iters=3, warmup=1),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+    }
+
+
+def kernel_line(gen, launches, rg_launches, xl_launches, err):
     """One row per kernel at the main paths' shapes. ``launches`` are the
     counts of the starcoder2-3b run, ``rg_launches`` those of the
-    recurrentgemma-9b run."""
+    recurrentgemma-9b run, ``xl_launches`` those of the xlstm-350m
+    training run."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import quantize as quant
@@ -549,7 +787,7 @@ def kernel_line(gen, launches, rg_launches, err):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             # the same at the decode shape (B, 1, D), launched once a layer
-            # in every decode step
+            # in every decode step; device times from a CUDA graph
             "decode_ms": dms, "decode_plain_ms": dplain_ms,
             "decode_bound_ms": dbms, "decode_bound_by": dby,
         })
@@ -579,6 +817,7 @@ def kernel_line(gen, launches, rg_launches, err):
             "plain_ms": cuda_ms(lambda: ref.dequantize_blockwise(qx, sx)),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
+        rows.append(_mlstm_row(gen, xl_launches["mlstm"], err["mlstm"]))
     return rows
 
 
@@ -586,7 +825,66 @@ def _layers(cfg, kind):
     return sum(unit.count(kind) * reps for unit, reps in cfg.segments)
 
 
+def time_training(cfg, device):
+    """Step time, tokens/s and peak device memory of the train step at the
+    main path's shape (three steps after a warm-up one, deterministic as on
+    the main path), and one profiled step."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch.train import batch_to, build
+
+    _, _, state, step_fn = build(cfg, seed=SEED, device=device)
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=XL_SEQ,
+                               global_batch=XL_BATCH)
+    batches = [batch_to(next(pipe), device) for _ in range(4)]
+    state, _ = step_fn(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (len(batches) - 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    device_profile(f"{cfg.name} train step (B={XL_BATCH}, S={XL_SEQ})",
+                   lambda: step_fn(state, batches[0]))
+    layer_s = {kind: _layer_seconds(cfg, state.params, kind, device)
+               for kind in ("mlstm", "slstm")}
+    return step_s, XL_BATCH * XL_SEQ / step_s, peak_gb, layer_s
+
+
+def _layer_seconds(cfg, params, kind, device, reps=2):
+    """Host-clock seconds of one forward and backward of the first
+    ``kind`` block of the trained params on a bf16 (B, S, d_model) input,
+    after a warm-up pass."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import map_tree
+    j = str(cfg.segments[0][0].index(kind))
+    p = map_tree(lambda a: a[0].detach().requires_grad_(True),
+                 params["segments"]["seg0"][j])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x = torch.randn((XL_BATCH, XL_SEQ, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16).requires_grad_(True)
+    apply = transformer.KINDS[kind].apply
+
+    def run():
+        apply(cfg, p, x, {}).float().square().mean().backward()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
 def main():
+    # cuBLAS is deterministic only with a fixed workspace, set before CUDA
+    # starts; the training path runs twice and is compared bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -596,6 +894,7 @@ def main():
                  f"from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    device = torch.device("cuda")
 
     environment()
     gen = torch.Generator(device="cuda")
@@ -612,15 +911,16 @@ def main():
           f" {cfg.param_dtype}), reduced: num_layers 30 -> {LAYERS}; "
           f"{cfg.param_count()} params", flush=True)
     t, launches, (model, params, prompts, n_quant) = serving_restart(
-        cfg, torch.device("cuda"), batch=BATCH, prompt=PROMPT,
-        gen_tokens=GEN, requests=REQUESTS, dram_capacity=2 << 30,
-        train_state=True)
-    want = {"flash_attention": LAYERS * REQUESTS, "rg_lru": 0,
+        cfg, device, batch=BATCH, prompt=PROMPT, gen_tokens=GEN,
+        requests=REQUESTS, dram_capacity=2 << 30, train_state=True)
+    want = {"flash_attention": LAYERS * REQUESTS, "rg_lru": 0, "mlstm": 0,
             "quantize_blockwise": n_quant,
             "dequantize_blockwise": n_quant}
     print(f"[main] launches in save -> restore -> serve: {launches} "
           f"(expected {want})", flush=True)
     check(launches == want, f"launch counts {launches} != {want}")
+    serving_numbers(cfg, t, model, params, prompts, GEN)
+    del model, params, prompts
 
     # phase 3b: slice 2's path, recurrentgemma-9b from a params-only
     # checkpoint; depth cut as the reference's reduced() cuts it
@@ -640,34 +940,64 @@ def main():
           f"{rg_cfg.num_layers}; {rg_cfg.param_count()} params; prompt "
           f"{RG_PROMPT} past the window", flush=True)
     rg_t, rg_launches, (rg_model, rg_params, rg_prompts, rg_quant) = \
-        serving_restart(rg_cfg, torch.device("cuda"), batch=RG_BATCH,
-                        prompt=RG_PROMPT, gen_tokens=RG_GEN,
-                        requests=RG_REQUESTS, dram_capacity=4 << 30,
-                        train_state=False)
+        serving_restart(rg_cfg, device, batch=RG_BATCH, prompt=RG_PROMPT,
+                        gen_tokens=RG_GEN, requests=RG_REQUESTS,
+                        dram_capacity=4 << 30, train_state=False)
     rg_want = {"flash_attention": _layers(rg_cfg, "attn_local")
                * RG_REQUESTS,
                "rg_lru": _layers(rg_cfg, "rglru") * RG_GEN * RG_REQUESTS,
-               "quantize_blockwise": rg_quant,
+               "mlstm": 0, "quantize_blockwise": rg_quant,
                "dequantize_blockwise": rg_quant}
     print(f"[main] launches in save -> restore -> serve: {rg_launches} "
           f"(expected {rg_want})", flush=True)
     check(rg_launches == rg_want, f"launch counts {rg_launches} != "
           f"{rg_want}")
+    serving_numbers(rg_cfg, rg_t, rg_model, rg_params, rg_prompts, RG_GEN)
+    del rg_model, rg_params, rg_prompts
 
-    # phase 4: numbers
-    for name, tt, args, (b, s) in (
-            (cfg.name, t, (cfg, model, params, prompts, GEN),
-             (BATCH, PROMPT)),
-            (rg_cfg.name, rg_t, (rg_cfg, rg_model, rg_params, rg_prompts,
-                                 RG_GEN), (RG_BATCH, RG_PROMPT))):
-        prefill_ms, decode_tps = time_serving(*args)
-        print(f"[numbers] {name}: save {tt['save_s']:.3f}s (ingest of "
-              f"{tt['ckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
-              f"flush {tt['flush_s']}s (off the critical path), restore "
-              f"{tt['restore_s']:.3f}s, prefill {prefill_ms:.2f} ms "
-              f"(B={b}, S={s}), decode {decode_tps:.1f} tok/s (B={b})",
-              flush=True)
-    rows = kernel_line(gen, launches, rg_launches, err)
+    # phase 3c: slice 3's path, xlstm-350m training through a server kill;
+    # depth cut as the reference's reduced() cuts it
+    full = get_config("xlstm-350m")
+    xl_cfg = dataclasses.replace(full, segments=tuple(
+        (unit, min(reps, 1)) for unit, reps in full.segments))
+    check(int(xl_cfg.d_model * xl_cfg.mlstm_proj_factor)
+          // xl_cfg.num_heads == XL_HEAD_DIM
+          and xl_cfg.num_heads == XL_HEADS, "xlstm-350m shapes")
+    print(f"[main] {xl_cfg.name} full width (d_model {xl_cfg.d_model}, "
+          f"{xl_cfg.num_heads} heads, mLSTM head dim {XL_HEAD_DIM}, conv "
+          f"{xl_cfg.conv1d_width}, vocab {xl_cfg.vocab_size}, params "
+          f"{xl_cfg.param_dtype}, compute {xl_cfg.compute_dtype}), reduced: "
+          f"segments {full.segments} -> {xl_cfg.segments}, num_layers "
+          f"{full.num_layers} -> {xl_cfg.num_layers}; "
+          f"{xl_cfg.param_count()} params; batch {XL_BATCH} x {XL_SEQ} "
+          f"tokens, {XL_STEPS} steps", flush=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        xl_t, xl_launches, xl_quant = training_restart(xl_cfg, device)
+        xl_want = {"flash_attention": 0, "rg_lru": 0,
+                   "mlstm": _layers(xl_cfg, "mlstm") * 2 * XL_STEPS,
+                   "quantize_blockwise": xl_quant,
+                   "dequantize_blockwise": xl_quant}
+        print(f"[main] launches in train -> save -> kill -> restore -> "
+              f"train -> int8 save -> restore: {xl_launches} (expected "
+              f"{xl_want})", flush=True)
+        check(xl_launches["mlstm"] > 0 and xl_launches == xl_want,
+              f"launch counts {xl_launches} != {xl_want}")
+        step_s, tok_s, peak_gb, layer_s = time_training(xl_cfg, device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[numbers] {xl_cfg.name}: step {step_s:.3f}s ({tok_s:.1f} tok/s, "
+          f"B={XL_BATCH}, S={XL_SEQ}, peak device memory {peak_gb:.2f} GB); "
+          f"save {xl_t['save_s']:.3f}s (ingest of "
+          f"{xl_t['ckpt_bytes'] / 1e9:.3f} GB, unquantized), flush "
+          f"{xl_t['flush_s']}s (off the critical path), restore after the "
+          f"kill {xl_t['restore_s']:.3f}s; int8 save {xl_t['qsave_s']:.3f}s "
+          f"({xl_t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
+          f"int8 restore {xl_t['qrestore_s']:.3f}s; one block forward and "
+          f"backward: mLSTM {layer_s['mlstm']:.3f}s, sLSTM "
+          f"{layer_s['slstm']:.3f}s", flush=True)
+
+    rows = kernel_line(gen, launches, rg_launches, xl_launches, err)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.optim.adamw import AdamWState
 
-# the port's counterpart of each NamedTuple the reference's trees hold
+# the port's counterpart of each NamedTuple the reference's checkpoints
+# hold: a JAX train_loop checkpoint is {"params", "opt_state": AdamWState,
+# "data"}
 _NAMEDTUPLES = {"AdamWState": AdamWState}
 
 

@@ -14,6 +14,8 @@ Layer kinds the port builds so far (see models/transformer.py registry):
   attn        global self-attention + dense MLP
   attn_local  sliding-window self-attention + dense MLP (same param shapes as attn)
   rglru       RG-LRU recurrent block (Griffin) + dense MLP
+  mlstm       xLSTM matrix-memory block (chunkwise-parallel kernel)
+  slstm       xLSTM scalar-memory block (sequential) + gated FFN
 """
 from __future__ import annotations
 
@@ -126,7 +128,8 @@ def get_config(name: str) -> ModelConfig:
 def _load_all():
     # import every config module once so @register side effects run
     import importlib
-    for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b"):
+    for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b",
+                "xlstm_350m"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

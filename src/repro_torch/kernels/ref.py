@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the ported kernels. Small, obviously correct, f32.
 
 Counterparts of ``repro/kernels/ref.py``: ``flash_attention`` (naive
-full-matrix attention), the RG-LRU scan ``rg_lru`` (sequential, f32 carry)
-and the blockwise int8 ``quantize_blockwise`` / ``dequantize_blockwise``.
+full-matrix attention), the RG-LRU scan ``rg_lru`` (sequential, f32 carry),
+the mLSTM cell ``mlstm`` (sequential, log-space stabilized) and the
+blockwise int8 ``quantize_blockwise`` / ``dequantize_blockwise``.
 ``chip_smoke.py`` holds the CUDA kernels against the plain versions beside
 their wrappers on the card; the CPU tests hold these against the JAX
 oracles and Pallas kernels.
@@ -61,6 +62,41 @@ def rg_lru(a, gx, h0=None):
         h = af[:, t] * h + gf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype), h.to(a.dtype)
+
+
+def mlstm(q, k, v, log_f, log_i, c0=None, n0=None, m0=None):
+    """mLSTM (xLSTM matrix memory) sequential oracle, log-space stabilized.
+
+    q/k/v: (B, S, H, D); log_f/log_i: (B, S, H) log forget/input gates.
+    C: (B,H,D,D) matrix state; n: (B,H,D) normalizer; m: (B,H) stabilizer.
+    h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))   [xLSTM eq. 19-27]
+    ``(c0, n0, m0)`` is an optional carried state (zeros and -1e30 if not
+    given). Returns (h (B,S,H,D) in q's dtype, (C, n) in q's dtype, m f32).
+    """
+    b, s, h, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lf, li = log_f.float(), log_i.float()
+    scale = d ** -0.5
+    dev = q.device
+    C = torch.zeros((b, h, d, d), device=dev) if c0 is None else c0.float()
+    n = torch.zeros((b, h, d), device=dev) if n0 is None else n0.float()
+    m = torch.full((b, h), NEG_INF, device=dev) if m0 is None else m0.float()
+    hs = []
+    for t in range(s):
+        qt, kt, vt = qf[:, t], kf[:, t] * scale, vf[:, t]     # (B,H,D)
+        m_new = torch.maximum(lf[:, t] + m, li[:, t])
+        fg = torch.exp(lf[:, t] + m - m_new)[..., None]       # (B,H,1)
+        ig = torch.exp(li[:, t] - m_new)[..., None]
+        C = fg[..., None] * C + ig[..., None] * (kt[..., :, None]
+                                                 * vt[..., None, :])
+        n = fg * n + ig * kt
+        num = torch.einsum("bhdk,bhd->bhk", C, qt)
+        den = torch.einsum("bhd,bhd->bh", n, qt).abs()
+        den = torch.maximum(den, torch.exp(-m_new))[..., None]
+        hs.append(num / den)
+        m = m_new
+    return (torch.stack(hs, dim=1).to(q.dtype),
+            (C.to(q.dtype), n.to(q.dtype), m))
 
 
 def quantize_blockwise(x, block: int = 2048):

@@ -51,16 +51,23 @@ def _materialize(desc: P, gen: torch.Generator, dtype, device) -> torch.Tensor:
 
 
 def map_tree(fn, tree):
-    """Apply ``fn`` to every non-dict leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of nested dicts and tuples (NamedTuples
+    keep their type)."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        kids = [map_tree(fn, v) for v in tree]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else tuple(kids)
     return fn(tree)
 
 
 def tree_leaves(tree):
-    """Leaves of a nested dict in sorted-key order (the reference's order)."""
+    """Leaves of nested dicts (in sorted-key order, the reference's order)
+    and tuples (in field order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

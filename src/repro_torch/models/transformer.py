@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/models/transformer.py`` for the layer kinds ``attn``
 and ``attn_local`` (global and sliding-window self-attention with a dense
-MLP) and ``rglru`` (the Griffin recurrent block with a dense MLP). A model
+MLP), ``rglru`` (the Griffin recurrent block with a dense MLP), and
+``mlstm`` and ``slstm`` (the xLSTM blocks). A model
 = embedding -> [segments] -> final norm -> unembedding, where each segment
 repeats a fixed ``unit`` of layer kinds; the reference scans over the
 stacked layer dimension, the port loops over it in Python.
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_norm, apply_rope,
                                        cfg_param_dtype, embed_descs,
                                        embed_tokens, init_tree, map_tree,
@@ -127,11 +129,41 @@ def _rglru_decode(cfg, p, x, cache, ext):
 _rglru_prefill = _rglru_decode
 
 
+# ---------------------------------------------------------------------------
+# xLSTM kinds (the blocks carry their own FFN or none)
+
+
+def _mlstm_cache(cfg, batch, max_seq, device):
+    return {"rec": xlstm_mod.init_mlstm_cache(cfg, batch, device)}
+
+
+def _mlstm_decode(cfg, p, x, cache, ext):
+    x, _ = xlstm_mod.decode_mlstm_block(cfg, p, x, cache["rec"])
+    return x, cache
+
+
+def _slstm_cache(cfg, batch, max_seq, device):
+    return xlstm_mod.init_slstm_cache(cfg, batch, device)
+
+
+def _slstm_decode(cfg, p, x, cache, ext):
+    return xlstm_mod.decode_slstm_block(cfg, p, x, cache)
+
+
 KINDS: Dict[str, Kind] = {
     "attn": _make_attn_kind(),
     "attn_local": _make_attn_kind(window_attr="window_size", local_theta=True),
     "rglru": Kind(_rglru_descs, _rglru_apply, _rglru_cache, _rglru_decode,
                   _rglru_prefill),
+    # prefill runs the decode block over the whole prompt, as for rglru
+    "mlstm": Kind(xlstm_mod.mlstm_descs,
+                  lambda cfg, p, x, ext: xlstm_mod.apply_mlstm_block(cfg, p,
+                                                                     x),
+                  _mlstm_cache, _mlstm_decode, _mlstm_decode),
+    "slstm": Kind(xlstm_mod.slstm_descs,
+                  lambda cfg, p, x, ext: xlstm_mod.apply_slstm_block(cfg, p,
+                                                                     x),
+                  _slstm_cache, _slstm_decode, _slstm_decode),
 }
 
 
@@ -170,7 +202,7 @@ def _positions(b: int, s: int, start: int, device):
 
 
 def forward(cfg, params, tokens):
-    """Scoring forward. tokens: (B, S) -> logits (B, S, V)."""
+    """Training / scoring forward. tokens: (B, S) -> logits (B, S, V)."""
     b, s = tokens.shape
     ext = {"positions": _positions(b, s, 0, tokens.device)}
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
@@ -189,8 +221,8 @@ def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
     for i, (unit, reps) in enumerate(cfg.segments):
         seg = {str(j): KINDS[k].init_cache(cfg, batch, max_seq, device)
                for j, k in enumerate(unit)}
-        cache[f"seg{i}"] = map_tree(lambda a: a.new_zeros((reps,) + a.shape),
-                                    seg)
+        cache[f"seg{i}"] = map_tree(
+            lambda a: a.expand((reps,) + a.shape).clone(), seg)
     return cache
 
 

@@ -1,9 +1,10 @@
-"""AdamW state for the training-layout checkpoint.
+"""AdamW with dtype-configurable moments.
 
-Counterpart of ``repro/optim/adamw.py``'s ``AdamWState`` and ``AdamW.init``:
-the checkpoint leaves ``opt_state/.step``, ``opt_state/.m/...`` and
-``opt_state/.v/...`` come from this NamedTuple. The update rule comes with
-the training path.
+Counterpart of ``repro/optim/adamw.py``: the same update, bias correction
+from the int32 step cast to f32, decoupled weight decay only on params of
+ndim >= 2, and moments held in ``state_dtype``. The checkpoint leaves
+``opt_state/.step``, ``opt_state/.m/...`` and ``opt_state/.v/...`` come
+from ``AdamWState``. Pure functions: ``update`` returns new tensors.
 """
 from __future__ import annotations
 
@@ -40,3 +41,41 @@ class AdamW:
                                            device=device),
                           m=map_tree(zeros, params),
                           v=map_tree(zeros, params))
+
+    def update(self, grads, state: AdamWState, params):
+        """-> (new params, new state). Every product and sum in f32, in the
+        reference's order."""
+        step = state.step + 1
+        lr = self.lr(step)
+        b1, b2 = self.b1, self.b2
+        t = step.float()
+        c1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
+        c2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+        dt = DTYPES[self.state_dtype]
+
+        def upd(g, m, v, p):
+            gf = g.float()
+            m_new = b1 * m.float() + (1 - b1) * gf
+            v_new = b2 * v.float() + (1 - b2) * gf.square()
+            mhat = m_new / c1
+            vhat = v_new / c2
+            delta = mhat / (torch.sqrt(vhat) + self.eps)
+            if self.weight_decay and p.dim() >= 2:  # no decay on norms/bias
+                delta = delta + self.weight_decay * p.float()
+            p_new = p.float() - lr * delta
+            return p_new.to(p.dtype), m_new.to(dt), v_new.to(dt)
+
+        return _update_tree(upd, grads, state.m, state.v, params, step)
+
+
+def _update_tree(fn, g, m, v, p, step):
+    """Apply ``fn(g, m, v, p) -> (p, m, v)`` leaf by leaf over dicts of the
+    same structure; -> (params, AdamWState)."""
+    def walk(g, m, v, p):
+        if isinstance(p, dict):
+            outs = {k: walk(g[k], m[k], v[k], p[k]) for k in p}
+            return tuple({k: o[i] for k, o in outs.items()} for i in range(3))
+        return fn(g, m, v, p)
+
+    p_new, m_new, v_new = walk(g, m, v, p)
+    return p_new, AdamWState(step=step, m=m_new, v=v_new)

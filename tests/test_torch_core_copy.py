@@ -1,7 +1,9 @@
 """``repro_torch/core`` is a copy of ``repro/core``: each module's code
 equals its reference's after the import prefix ``repro.core`` is rewritten
 to ``repro_torch.core``, so the reference's core tests and bbcheck rules
-vouch for the copy too. Comments and docstrings are prose and are not
+vouch for the copy too. The same holds for the pure-numpy data pipeline
+(``data/pipeline.py``), whose batch sequence a training restore depends
+on. Comments and docstrings are prose and are not
 compared: the copy's carry no development-history tags (issue and change
 numbers), which the reference's do. To refresh the copy after a change to
 ``repro/core``, copy each module with the prefix rewritten and take those
@@ -42,4 +44,11 @@ def test_core_module_is_a_verbatim_copy(name):
     copy = (SRC / "repro_torch" / "core" / name).read_text()
     assert code_of(copy) == code_of(ref.replace("repro.core",
                                                 "repro_torch.core"))
+    assert not re.search(r"\bISSUE \d|\bPR \d", copy)
+
+
+def test_data_pipeline_is_a_verbatim_copy():
+    ref = (SRC / "repro" / "data" / "pipeline.py").read_text()
+    copy = (SRC / "repro_torch" / "data" / "pipeline.py").read_text()
+    assert code_of(copy) == code_of(ref)
     assert not re.search(r"\bISSUE \d|\bPR \d", copy)

@@ -12,8 +12,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mlstm
 from repro_torch.kernels import quantize as quant
 from repro_torch.kernels import rg_lru
+from repro_torch.launch import train
 from repro_torch.models.registry import build_model
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -24,9 +26,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, "
         "repro_torch.checkpoint.bbckpt, repro_torch.checkpoint.convert, "
-        "repro_torch.models.rglru, repro_torch.kernels.rg_lru\n"
+        "repro_torch.models.rglru, repro_torch.kernels.rg_lru, "
+        "repro_torch.kernels.mlstm, repro_torch.models.xlstm, "
+        "repro_torch.data.pipeline, repro_torch.optim.schedule, "
+        "repro_torch.optim.grad, repro_torch.optim.adamw, "
+        "repro_torch.runtime.train_step, repro_torch.launch.train\n"
         "from repro_torch.configs.base import get_config\n"
-        "get_config('recurrentgemma-9b')\n"
+        "get_config('recurrentgemma-9b'), get_config('xlstm-350m')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -73,6 +79,17 @@ def test_kernel_wrappers_refuse_cpu_tensors(no_cuda):
                                    torch.ones(1))
     with pytest.raises(ValueError, match="CUDA"):
         rg_lru.rg_lru(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        mlstm.mlstm(q, q, q, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
     assert fa.flash_attention.launches == 0
     assert quant.quantize_blockwise.launches == 0
     assert rg_lru.rg_lru.launches == 0
+    assert mlstm.mlstm.launches == 0
+
+
+def test_train_entry_points_refuse_cuda_without_a_card(no_cuda):
+    cfg = reduced(get_config("xlstm-350m"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build(cfg)                    # device defaults to "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "xlstm-350m", "--reduced", "--steps", "1"])

@@ -21,8 +21,11 @@ from repro_torch.runtime.serve_step import greedy_token
 # Reduced recurrentgemma-9b has 4 layers (3 rglru, 1 attn_local); on the CPU
 # the reference's rglru layers run the associative scan and the port's the
 # sequential one, which round differently (1.1e-5 measured on the forward,
-# 3e-6 on prefill and decode)
-ARCHS = {"starcoder2-3b": 1e-4, "gemma3-4b": 1e-3, "recurrentgemma-9b": 1e-4}
+# 3e-6 on prefill and decode). Reduced xlstm-350m has 8 layers (7 mlstm,
+# 1 slstm); its chunked mLSTM and sequential sLSTM sum in other orders than
+# XLA's (2.4e-5 measured on the forward, 1.3e-5 on prefill and decode)
+ARCHS = {"starcoder2-3b": 1e-4, "gemma3-4b": 1e-3, "recurrentgemma-9b": 1e-4,
+         "xlstm-350m": 1e-4}
 
 
 def _pair(arch):
