@@ -7,9 +7,11 @@ Phases; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
      the CUDA kernels are built from ``src/repro_torch/kernels/csrc``.
   2. every kernel against its plain PyTorch version on the card: flash
-     attention on the reference's ATTN_CASES, small f32 and bf16
-     head-dim-256 cases and both serving prefill shapes (bf16 at head dim
-     256 within one bf16 ulp); the RG-LRU scan bit for bit at the
+     attention on the reference's ATTN_CASES, a bf16 twin of each (the
+     tensor-core kernel: softcap, window, non-causal, GQA, ragged S), a
+     tile-ragged windowed case and a q_offset case with Sq < Sk, small f32
+     and bf16 head-dim-256 cases and both serving prefill shapes (bf16 at
+     head dim 256 within one bf16 ulp); the RG-LRU scan bit for bit at the
      recurrentgemma prefill and decode shapes and a ragged f32 case; the
      mLSTM forward at the reference's three test shapes (f32) and the
      xlstm-350m training shape (bf16, within one bf16 ulp), its m bit for
@@ -66,18 +68,27 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 # the reference's ATTN_CASES (tests/test_kernels.py) with their tolerances,
 # plus the serving prefill shape: (B, Sq, Sk, H, KV, D, causal, window,
-# softcap, dtype, tol)
+# softcap, q_offset, dtype, tol)
 ATTN_CASES = [
-    (1, 128, 128, 4, 4, 64, True, 0, 0.0, "float32", 2e-5),
-    (2, 96, 96, 4, 2, 32, True, 0, 0.0, "float32", 2e-5),
-    (1, 128, 128, 8, 2, 64, True, 48, 0.0, "float32", 2e-5),
-    (1, 64, 64, 2, 1, 128, False, 0, 0.0, "float32", 2e-5),
-    (1, 128, 128, 4, 4, 64, True, 0, 20.0, "float32", 2e-5),
-    (1, 128, 128, 4, 2, 64, True, 0, 0.0, "bfloat16", 3e-2),
-    (2, 80, 80, 4, 4, 48, True, 0, 0.0, "float32", 2e-5),
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, 0, "float32", 2e-5),
+    (2, 96, 96, 4, 2, 32, True, 0, 0.0, 0, "float32", 2e-5),
+    (1, 128, 128, 8, 2, 64, True, 48, 0.0, 0, "float32", 2e-5),
+    (1, 64, 64, 2, 1, 128, False, 0, 0.0, 0, "float32", 2e-5),
+    (1, 128, 128, 4, 4, 64, True, 0, 20.0, 0, "float32", 2e-5),
+    (1, 128, 128, 4, 2, 64, True, 0, 0.0, 0, "bfloat16", 3e-2),
+    (2, 80, 80, 4, 4, 48, True, 0, 0.0, 0, "float32", 2e-5),
 ]
-PREFILL_CASE = (BATCH, PROMPT, PROMPT, 24, 2, 128, True, 0, 0.0, "bfloat16",
-                3e-2)
+# every feature through the bf16 tensor-core kernel, at the reference's bf16
+# tolerance: a bf16 twin of each f32 case above (softcap, window, non-causal,
+# GQA groups, a ragged S at D = 48), tiles ragged at both ends with a window
+# edge inside tiles, and a q offset with Sq < Sk (the last 64 of 200 rows)
+BF16_CASES = [case[:10] + ("bfloat16", 3e-2) for case in ATTN_CASES
+              if case[10] == "float32"] + [
+    (2, 300, 300, 8, 2, 128, True, 100, 0.0, 0, "bfloat16", 3e-2),
+    (1, 64, 200, 4, 2, 128, True, 0, 0.0, 136, "bfloat16", 3e-2),
+]
+PREFILL_CASE = (BATCH, PROMPT, PROMPT, 24, 2, 128, True, 0, 0.0, 0,
+                "bfloat16", 3e-2)
 MOMENT_SHAPE = (LAYERS, 3072, 12288)   # the w_up moment leaf, f32
 
 # slice 2: recurrentgemma-9b, a prompt past its 2048-token window
@@ -92,9 +103,10 @@ RG_WINDOW, RG_HEADS, RG_HEAD_DIM, RG_WIDTH = 2048, 16, 256, 4096
 # output by a tenth or more, far above its limit.
 D256_BF16_TOL = 8e-3
 RG_PREFILL_CASE = (RG_BATCH, RG_PROMPT, RG_PROMPT, RG_HEADS, 1, RG_HEAD_DIM,
-                   True, RG_WINDOW, 0.0, "bfloat16", D256_BF16_TOL)
-D256_CASES = [(2, 96, 96, 4, 1, 256, True, 32, 0.0, "float32", 2e-5),
-              (2, 96, 96, 4, 1, 256, True, 8, 0.0, "bfloat16", D256_BF16_TOL)]
+                   True, RG_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
+D256_CASES = [(2, 96, 96, 4, 1, 256, True, 32, 0.0, 0, "float32", 2e-5),
+              (2, 96, 96, 4, 1, 256, True, 8, 0.0, 0, "bfloat16",
+               D256_BF16_TOL)]
 # RG-LRU scan: (B, S, D, dtype, h0), held bit for bit; prefill starts from
 # the zero state of a fresh cache, decode from the carried one
 RG_LRU_PREFILL = (RG_BATCH, RG_PROMPT, RG_WIDTH, "bfloat16", "zero")
@@ -155,15 +167,15 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 
 def _kernel_label(mangled: str) -> str:
-    """'flash_fwd_kernel<bf16, 256>' from a mangled template instance name;
-    other names unchanged."""
+    """'mlstm_fwd_kernel<bf16, 256>' or 'flash_mma_kernel<256>' from a
+    mangled template instance name; other names unchanged."""
     m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
     if not m:
         return mangled
     name, args = m.groups()
-    dtype = "bf16" if "bfloat16" in args else \
-        "f32" if args.startswith("f") else args
-    return f"{name}<{', '.join([dtype] + re.findall(r'Li(\d+)E', args))}>"
+    dtype = ["bf16"] if "bfloat16" in args else \
+        ["f32"] if args.startswith("f") else []
+    return f"{name}<{', '.join(dtype + re.findall(r'Li(\d+)E', args))}>"
 
 
 def environment():
@@ -244,13 +256,14 @@ def check_kernels(gen):
     from repro_torch.kernels import rg_lru
 
     err = {}
-    for case in ATTN_CASES + D256_CASES + [PREFILL_CASE, RG_PREFILL_CASE]:
-        *_, causal, window, cap, dtype, tol = case
+    for case in (ATTN_CASES + BF16_CASES + D256_CASES
+                 + [PREFILL_CASE, RG_PREFILL_CASE]):
+        *_, causal, window, cap, q_offset, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                 softcap=cap)
+                                 softcap=cap, q_offset=q_offset)
         plain = ops.flash_chunked(q, k, v, causal=causal, window=window,
-                                  softcap=cap)
+                                  softcap=cap, q_offset=q_offset)
         torch.cuda.synchronize()
         # elementwise, as the reference's kernel tests hold it:
         # |kernel - plain| <= tol + tol * |plain| at every element
@@ -258,7 +271,7 @@ def check_kernels(gen):
         lim = tol + tol * plain.float().abs()
         worst = torch.argmax(diff / lim).item()
         e = diff.max().item()
-        print(f"[flash] {case[:10]}: max|kernel-plain| {e:.3e}; worst "
+        print(f"[flash] {case[:-1]}: max|kernel-plain| {e:.3e}; worst "
               f"element {diff.view(-1)[worst].item():.3e} against its bound "
               f"{lim.view(-1)[worst].item():.3e} (atol = rtol = {tol:g})",
               flush=True)
@@ -660,7 +673,11 @@ def serving_numbers(cfg, t, model, params, prompts, gen_tokens):
 
 def _flash_row(name, case, gen, launches, err):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
-    the (q, k) pairs the causal and window masks leave."""
+    the (q, k) pairs the causal and window masks leave. ``ms`` and
+    ``library_ms`` are CUDA-event times of back-to-back calls from Python,
+    which include whatever of each call's host cost the device does not
+    hide; ``graph_ms`` and ``library_graph_ms`` are device times of one
+    call, from a CUDA graph of many."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -682,16 +699,19 @@ def _flash_row(name, case, gen, launches, err):
     else:
         library = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
+    kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+    calls = 20 if pairs > 1e8 else 200   # graphs of ~10 to ~50 ms
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:80",
         "launches": launches, "max_abs_err": err,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                 window=window)),
+        "ms": cuda_ms(kernel),
         "plain_ms": cuda_ms(lambda: ops.flash_chunked(q, k, v, causal=causal,
                                                       window=window)),
         "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library),
+        "graph_ms": graph_ms(kernel, calls=calls),
+        "library_graph_ms": graph_ms(library, calls=calls),
     }
 
 

@@ -2,8 +2,12 @@
 ``csrc/flash_attention.cu`` (the Hopper port of the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas``).
 
-The wrapper takes CUDA tensors only and raises on anything the kernel does
-not take; ``kernels/ops.py`` sends CPU tensors to the plain chunked version.
+bfloat16 inputs go to the tensor-core kernel (``mma.sync``, bf16 products
+with f32 accumulation), float32 inputs to the f32 kernel on the CUDA cores
+(the reference's f32 tolerance rules out TF32). The wrapper takes CUDA
+tensors only and raises on anything the kernel for their dtype does not
+take; it never routes an input to the other kernel or to the plain version.
+``kernels/ops.py`` sends CPU tensors to the plain chunked version.
 The kernel is forward-only: it refuses inputs that require a gradient
 (the backward kernel comes with the training path).
 """
@@ -53,6 +57,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel: inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: bf16 inputs must start at "
+                         "16-byte aligned addresses (16-byte async copies)")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError("flash_attention kernel is forward-only")

@@ -12,22 +12,33 @@ from repro.kernels.quantize import (dequantize_blockwise_pallas,
                                     quantize_blockwise_pallas)
 from repro_torch.kernels import ops, ref
 
-# the reference's ATTN_CASES (tests/test_kernels.py), with its tolerances:
-# (B, Sq, Sk, H, KV, D, causal, window, softcap, dtype, tol)
+# the reference's ATTN_CASES (tests/test_kernels.py), with its tolerances,
+# and a q offset of 0: (B, Sq, Sk, H, KV, D, causal, window, softcap,
+# q_offset, dtype, tol)
 ATTN_CASES = [
-    (1, 128, 128, 4, 4, 64, True, 0, 0.0, "float32", 2e-5),
-    (2, 96, 96, 4, 2, 32, True, 0, 0.0, "float32", 2e-5),
-    (1, 128, 128, 8, 2, 64, True, 48, 0.0, "float32", 2e-5),
-    (1, 64, 64, 2, 1, 128, False, 0, 0.0, "float32", 2e-5),
-    (1, 128, 128, 4, 4, 64, True, 0, 20.0, "float32", 2e-5),
-    (1, 128, 128, 4, 2, 64, True, 0, 0.0, "bfloat16", 3e-2),
-    (2, 80, 80, 4, 4, 48, True, 0, 0.0, "float32", 2e-5),  # ragged seq
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, 0, "float32", 2e-5),
+    (2, 96, 96, 4, 2, 32, True, 0, 0.0, 0, "float32", 2e-5),
+    (1, 128, 128, 8, 2, 64, True, 48, 0.0, 0, "float32", 2e-5),
+    (1, 64, 64, 2, 1, 128, False, 0, 0.0, 0, "float32", 2e-5),
+    (1, 128, 128, 4, 4, 64, True, 0, 20.0, 0, "float32", 2e-5),
+    (1, 128, 128, 4, 2, 64, True, 0, 0.0, 0, "bfloat16", 3e-2),
+    (2, 80, 80, 4, 4, 48, True, 0, 0.0, 0, "float32", 2e-5),  # ragged seq
 ]
 # head dim 256 (gemma3, recurrentgemma) with MQA (KV = 1) and a window of 8
 # at a small S, at the same tolerances
 D256_CASES = [
-    (1, 40, 40, 4, 1, 256, True, 8, 0.0, "float32", 2e-5),
-    (2, 40, 40, 4, 1, 256, True, 8, 0.0, "bfloat16", 3e-2),
+    (1, 40, 40, 4, 1, 256, True, 8, 0.0, 0, "float32", 2e-5),
+    (2, 40, 40, 4, 1, 256, True, 8, 0.0, 0, "bfloat16", 3e-2),
+]
+# features the card's bf16 tensor-core kernel must take, at the reference's
+# bf16 tolerance: softcap, a window, tiles ragged at both ends (300 keys are
+# 4 tiles of 64 and a part, with a window edge inside tiles), and a q offset
+# with Sq < Sk (the last 64 queries of 200 keys)
+BF16_CASES = [
+    (1, 128, 128, 4, 4, 64, True, 0, 20.0, 0, "bfloat16", 3e-2),
+    (1, 128, 128, 8, 2, 64, True, 48, 0.0, 0, "bfloat16", 3e-2),
+    (2, 300, 300, 8, 2, 128, True, 100, 0.0, 0, "bfloat16", 3e-2),
+    (1, 64, 200, 4, 2, 128, True, 0, 0.0, 136, "bfloat16", 3e-2),
 ]
 
 # the plain versions: the chunked online softmax the CPU path runs (chunk 48
@@ -46,17 +57,18 @@ def _pair(a: np.ndarray, dtype: str):
 
 
 @pytest.mark.parametrize("plain", sorted(PLAIN))
-@pytest.mark.parametrize("case", ATTN_CASES + D256_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + D256_CASES + BF16_CASES)
 def test_plain_flash_matches_pallas_kernel(case, plain):
-    b, sq, sk, h, kv, d, causal, window, cap, dtype, tol = case
+    b, sq, sk, h, kv, d, causal, window, cap, q_offset, dtype, tol = case
     rng = np.random.default_rng(7)
     qj, qt = _pair(rng.normal(size=(b, sq, h, d)).astype(np.float32), dtype)
     kj, kt = _pair(rng.normal(size=(b, sk, kv, d)).astype(np.float32), dtype)
     vj, vt = _pair(rng.normal(size=(b, sk, kv, d)).astype(np.float32), dtype)
     exp = flash_attention_pallas(qj, kj, vj, causal=causal, window=window,
-                                 softcap=cap, block_q=64, block_k=64,
-                                 interpret=True)
-    out = PLAIN[plain](qt, kt, vt, causal=causal, window=window, softcap=cap)
+                                 softcap=cap, q_offset=q_offset, block_q=64,
+                                 block_k=64, interpret=True)
+    out = PLAIN[plain](qt, kt, vt, causal=causal, window=window, softcap=cap,
+                       q_offset=q_offset)
     assert out.dtype == qt.dtype and out.shape == qt.shape
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(exp, np.float32), atol=tol, rtol=tol)
