@@ -13,8 +13,10 @@ Phases; any failure exits non-zero:
      and bf16 head-dim-256 cases and both serving prefill shapes (bf16 at
      head dim 256 within one bf16 ulp); the RG-LRU scan bit for bit at the
      recurrentgemma prefill and decode shapes and a ragged f32 case; the
-     mLSTM forward at the reference's three test shapes (f32) and the
-     xlstm-350m training shape (bf16, within one bf16 ulp), its m bit for
+     mLSTM forward at the reference's three test shapes (f32, the CUDA-core
+     kernel) and, through the tensor-core kernel within one bf16 ulp, a bf16
+     twin of each, head dims 128 and 256, a chunk of 40 and the xlstm-350m
+     training shape (launched twice there: bit-identical), its m bit for
      bit; int8 quantize / dequantize bit for bit on a full-width moment.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
@@ -120,15 +122,23 @@ XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
 XL_DRAM = 2 << 30                     # a server's DRAM (~2.0 GB checkpoint)
 # mLSTM forward: (shape (B, S, H, D), chunk, dtype, atol, rtol). The
 # reference's kernel tests (tests/test_kernels.py) with their tolerances in
-# f32; the training shape in bf16 within one bf16 ulp (as D256_BF16_TOL);
-# m is compared within 1e-5 (the kernel and the plain version scan F in
-# one order, so it comes out equal)
+# f32 (the CUDA-core kernel); every bf16 case (the tensor-core kernel)
+# within one bf16 ulp (as D256_BF16_TOL): a bf16 twin of each f32 case, head
+# dims 128 and 256, a chunk of 40 (not a multiple of the 16-row tile) and
+# the training shape; m is compared within 1e-5 (the kernels and the plain
+# version scan F in one order, so it comes out equal)
 MLSTM_TRAIN_CASE = ((XL_BATCH, XL_SEQ, XL_HEADS, XL_HEAD_DIM), 128,
                     "bfloat16", 8e-3, 8e-3)
-MLSTM_CASES = [((1, 128, 2, 32), 64, "float32", 5e-4, 1e-3),
-               ((2, 256, 1, 64), 128, "float32", 5e-4, 1e-3),
-               ((1, 192, 4, 16), 64, "float32", 5e-4, 1e-3),
-               MLSTM_TRAIN_CASE]
+MLSTM_F32_CASES = [((1, 128, 2, 32), 64, "float32", 5e-4, 1e-3),
+                   ((2, 256, 1, 64), 128, "float32", 5e-4, 1e-3),
+                   ((1, 192, 4, 16), 64, "float32", 5e-4, 1e-3)]
+MLSTM_CASES = MLSTM_F32_CASES + [
+    (shape, chunk, "bfloat16", 8e-3, 8e-3)
+    for shape, chunk, *_ in MLSTM_F32_CASES] + [
+    ((2, 256, 2, 128), 128, "bfloat16", 8e-3, 8e-3),
+    ((1, 256, 2, 256), 64, "bfloat16", 8e-3, 8e-3),
+    ((2, 120, 2, 64), 40, "bfloat16", 8e-3, 8e-3),
+    MLSTM_TRAIN_CASE]
 MLSTM_M_TOL = 1e-5
 
 
@@ -167,7 +177,7 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 
 def _kernel_label(mangled: str) -> str:
-    """'mlstm_fwd_kernel<bf16, 256>' or 'flash_mma_kernel<256>' from a
+    """'mlstm_mma_kernel<512>' or 'dequantize_kernel<bf16>' from a
     mangled template instance name; other names unchanged."""
     m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
     if not m:
@@ -332,6 +342,17 @@ def check_kernels(gen):
               + f"; max|m-m_plain| {dm:.3e} (tol {MLSTM_M_TOL:g}; h, C, n at"
               f" atol {atol:g}, rtol {rtol:g})", flush=True)
         check(dm <= MLSTM_M_TOL, f"mlstm {case}: m differs by {dm}")
+        if case == MLSTM_TRAIN_CASE:
+            # the training restart is checked bit for bit: a second launch
+            # on the same inputs must give the same bits
+            h2, (c2, n2, m2) = mlstm.mlstm(*x, chunk=chunk)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in
+                       ((h, h2), (c, c2), (n, n2), (m, m2)))
+            print(f"[mlstm] {shape} chunk {chunk} {dtype}: two launches "
+                  f"bit-identical in h, C, n, m: {same}", flush=True)
+            check(same, f"mlstm {case}: two launches differ")
+            del h2, c2, n2, m2
         del x, h, c, n, m, ph, pc, pn, pm
 
     x = torch.randn(MOMENT_SHAPE, generator=gen, device="cuda") * 1e-3

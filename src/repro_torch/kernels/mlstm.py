@@ -1,6 +1,8 @@
-"""Chunkwise mLSTM forward: the wrapper of the CUDA kernel ``csrc/mlstm.cu``
+"""Chunkwise mLSTM forward: the wrapper of the CUDA kernels ``csrc/mlstm.cu``
 (the Hopper port of the Pallas TPU kernel
-``repro/kernels/mlstm.py::mlstm_pallas``).
+``repro/kernels/mlstm.py::mlstm_pallas``): bfloat16 inputs run on
+``mlstm_mma_kernel`` (products on the tensor cores), float32 inputs on
+``mlstm_simt_kernel`` (f32 on the CUDA cores).
 
 The wrapper takes CUDA tensors only and raises on anything the kernel does
 not take; ``kernels/ops.py`` sends CPU tensors, and calls that carry a
@@ -63,6 +65,10 @@ def _check(q, k, v, log_f, log_i, chunk):
                          f"chunk {chunk} (1 <= chunk <= {MAX_CHUNK})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mlstm kernel: inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("mlstm kernel: bfloat16 q, k, v must be 16-byte "
+                         "aligned (the kernel copies 16-byte units)")
 
 
 def _launch(q, k, v, log_f, log_i, chunk):
