@@ -11,9 +11,11 @@ Phases; any failure exits non-zero:
      tensor-core kernel: softcap, window, non-causal, GQA, ragged S), a
      tile-ragged windowed case and a q_offset case with Sq < Sk, small f32
      and bf16 head-dim-256 cases and both serving prefill shapes (bf16 at
-     head dim 256 within one bf16 ulp); the RG-LRU scan bit for bit at the
-     recurrentgemma prefill and decode shapes and a ragged f32 case; the
-     mLSTM forward at the reference's three test shapes (f32, the CUDA-core
+     head dim 256 within one bf16 ulp); both RG-LRU kernels (the ring at
+     S >= one time tile, the step kernel below) bit for bit in f32 and bf16
+     at the recurrentgemma prefill and decode shapes, ragged S and D, rows
+     off 16-byte boundaries, B = 1 and h0 None, and two launches at the
+     prefill shape bit-identical; the mLSTM forward at the reference's three test shapes (f32, the CUDA-core
      kernel) and, through the tensor-core kernel within one bf16 ulp, a bf16
      twin of each, head dims 128 and 256, a chunk of 40 and the xlstm-350m
      training shape (launched twice there: bit-identical), its m bit for
@@ -110,11 +112,28 @@ D256_CASES = [(2, 96, 96, 4, 1, 256, True, 32, 0.0, 0, "float32", 2e-5),
               (2, 96, 96, 4, 1, 256, True, 8, 0.0, 0, "bfloat16",
                D256_BF16_TOL)]
 # RG-LRU scan: (B, S, D, dtype, h0), held bit for bit; prefill starts from
-# the zero state of a fresh cache, decode from the carried one
+# the zero state of a fresh cache, decode from the carried one; h0 "none"
+# passes None to the wrapper
 RG_LRU_PREFILL = (RG_BATCH, RG_PROMPT, RG_WIDTH, "bfloat16", "zero")
 RG_LRU_DECODE = (RG_BATCH, 1, RG_WIDTH, "bfloat16", "normal")
-RG_LRU_CASES = [RG_LRU_PREFILL, RG_LRU_DECODE,
-                (2, 300, 384, "float32", "normal")]
+
+
+def _rg_lru_cases(tile_s):
+    """Both serving shapes and the kernels' edges, each in f32 and bf16:
+    a ragged S (300, one tile + 1), S = 2, S on each side of the step /
+    ring threshold (one time tile), a D that is not a multiple of the
+    ring's 64 / 32 channels (4100: bf16 rows not 16-byte aligned, so
+    shifted rows; 4104: aligned), D = 1030 (neither dtype aligned), B = 1,
+    and h0 None."""
+    shapes = [(RG_BATCH, RG_PROMPT, RG_WIDTH, "zero"),
+              (RG_BATCH, 1, RG_WIDTH, "normal"),
+              (2, 300, 384, "normal"), (2, tile_s + 1, 384, "none"),
+              (3, 2, 384, "normal"), (2, tile_s - 1, 320, "normal"),
+              (2, tile_s, 320, "none"), (2, 200, 4100, "normal"),
+              (2, 130, 4104, "none"), (2, 150, 1030, "normal"),
+              (1, 512, RG_WIDTH, "none")]
+    return [(b, s, d, dtype, h0) for b, s, d, h0 in shapes
+            for dtype in ("bfloat16", "float32")]
 
 # slice 3: xlstm-350m training, one repeat of its (mLSTM x 7, sLSTM) unit
 XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 8
@@ -185,7 +204,7 @@ def _kernel_label(mangled: str) -> str:
     name, args = m.groups()
     dtype = ["bf16"] if "bfloat16" in args else \
         ["f32"] if args.startswith("f") else []
-    return f"{name}<{', '.join(dtype + re.findall(r'Li(\d+)E', args))}>"
+    return f"{name}<{', '.join(dtype + re.findall(r'L[bi](\d+)E', args))}>"
 
 
 def environment():
@@ -238,7 +257,79 @@ def _rg_lru_inputs(case, gen):
                                   device="cuda")).to(dt)
     gx = (0.1 * torch.randn((b, s, d), generator=gen, device="cuda")).to(dt)
     h0 = (0.1 * torch.randn((b, d), generator=gen, device="cuda")).to(dt)
+    if h0_kind == "none":
+        return a, gx, None
     return a, gx, (h0 if h0_kind == "normal" else h0.zero_())
+
+
+def check_rg_lru():
+    """Both RG-LRU kernels bit for bit against the plain version on every
+    case of ``_rg_lru_cases``, on inputs off a 16-byte boundary (a and gx
+    at different shifts), and over two launches at the prefill shape; the
+    cases must reach both kernels and both row alignments of the ring in
+    each dtype. Returns the max error. The inputs come from a generator of
+    their own, so these cases do not move the other kernels' inputs."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+
+    def run(case, a, gx, h0):
+        h, h_last = rg_lru.rg_lru(a, gx, h0)
+        ph, ph_last = ref.rg_lru(a, gx, h0)
+        torch.cuda.synchronize()
+        de = max((h.float() - ph.float()).abs().max().item(),
+                 (h_last.float() - ph_last.float()).abs().max().item())
+        check(h.dtype == a.dtype and h.shape == a.shape
+              and h_last.shape == (a.shape[0], a.shape[2]),
+              f"rg_lru {case}: output {h.dtype} {tuple(h.shape)}")
+        check(torch.isfinite(h.float()).all().item(), f"rg_lru {case}: "
+              f"non-finite output")
+        check(torch.equal(h, ph) and torch.equal(h_last, ph_last),
+              f"rg_lru {case}: differs from its plain version")
+        return de, h, h_last
+
+    e, reached = 0.0, set()
+    for case in _rg_lru_cases(rg_lru.TILE_S):
+        a, gx, h0 = _rg_lru_inputs(case, gen)
+        plan = rg_lru.launch_plan(*a.shape, a.dtype)
+        reached.add((case[3], plan.kernel, plan.aligned))
+        de, h, h_last = run(case, a, gx, h0)
+        print(f"[rg_lru] {case}: {plan.kernel} kernel, "
+              f"{'aligned' if plan.aligned else 'shifted'} rows, grid "
+              f"{plan.grid}; max|kernel-plain| {de:.3e} (tol 0: "
+              f"bit-identical)", flush=True)
+        if case == RG_LRU_PREFILL:
+            h2, h_last2 = rg_lru.rg_lru(a, gx, h0)
+            torch.cuda.synchronize()
+            same = torch.equal(h, h2) and torch.equal(h_last, h_last2)
+            print(f"[rg_lru] {case}: two launches bit-identical: {same}",
+                  flush=True)
+            check(same, f"rg_lru {case}: two launches differ")
+            del h2, h_last2
+        e = max(e, de)
+        del a, gx, h0, h, h_last
+    # rows of 16-byte multiples, but a one and gx three elements past a
+    # 16-byte boundary: each row read at its own shift, two shifts a row
+    for dtype in ("bfloat16", "float32"):
+        case = (2, 300, 384, dtype, "normal")
+        a, gx, h0 = _rg_lru_inputs(case, gen)
+        a, gx = (torch.cat([x.new_zeros(k), x.reshape(-1)])[k:].view(x.shape)
+                 for x, k in ((a, 1), (gx, 3)))
+        plan = rg_lru.launch_plan(*a.shape, a.dtype, aligned=False)
+        reached.add((dtype, plan.kernel, plan.aligned))
+        de, *_ = run(case, a, gx, h0)
+        print(f"[rg_lru] {case}, a and gx 1 and 3 elements past a 16-byte "
+              f"boundary: {plan.kernel} kernel, shifted rows; "
+              f"max|kernel-plain| {de:.3e} (tol 0)", flush=True)
+        e = max(e, de)
+    want = {(dt, k, al) for dt in ("bfloat16", "float32")
+            for k, al in (("step", True), ("ring", True), ("ring", False))}
+    check(reached == want, f"rg_lru cases reached {sorted(reached)}, "
+          f"not every kernel and row alignment {sorted(want)}")
+    return e
 
 
 def _mlstm_inputs(case, gen):
@@ -263,7 +354,6 @@ def check_kernels(gen):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm
     from repro_torch.kernels import quantize as quant
-    from repro_torch.kernels import rg_lru
 
     err = {}
     for case in (ATTN_CASES + BF16_CASES + D256_CASES
@@ -295,25 +385,7 @@ def check_kernels(gen):
             err["flash_attention_d256"] = e
         del q, k, v, out, plain, diff, lim
 
-    e = 0.0
-    for case in RG_LRU_CASES:
-        a, gx, h0 = _rg_lru_inputs(case, gen)
-        h, h_last = rg_lru.rg_lru(a, gx, h0)
-        ph, ph_last = ref.rg_lru(a, gx, h0)
-        torch.cuda.synchronize()
-        de = max((h.float() - ph.float()).abs().max().item(),
-                 (h_last.float() - ph_last.float()).abs().max().item())
-        print(f"[rg_lru] {case}: max|kernel-plain| {de:.3e} (tol 0: "
-              f"bit-identical)", flush=True)
-        check(h.dtype == a.dtype and h.shape == a.shape
-              and h_last.shape == (a.shape[0], a.shape[2]),
-              f"rg_lru {case}: output {h.dtype} {tuple(h.shape)}")
-        check(torch.isfinite(h.float()).all().item(), f"rg_lru {case}: "
-              f"non-finite output")
-        check(torch.equal(h, ph) and torch.equal(h_last, ph_last),
-              f"rg_lru {case}: differs from its plain version")
-        e = max(e, de)
-    err["rg_lru"] = e
+    err["rg_lru"] = check_rg_lru()
 
     for case in MLSTM_CASES:
         shape, chunk, dtype, atol, rtol = case
@@ -755,10 +827,11 @@ def graph_ms(fn, calls: int = 200) -> float:
 
 
 def _rg_lru_time(case, gen):
-    """(kernel ms, plain ms, bound ms, bound by) at one scan shape: a, gx
-    and h0 read once, h and h_last written once; a multiply and an add per
-    element. At the decode shape (S = 1) each launch moves a few hundred
-    KB, so both times are device times from a CUDA graph of many calls."""
+    """(kernel ms, plain ms, bound ms, bound by, kernel device ms) at one
+    scan shape: a, gx and h0 read once, h and h_last written once; a
+    multiply and an add per element. The device time is one call's, from
+    a CUDA graph of many. At the decode shape (S = 1) each launch moves a
+    few hundred KB, so there the first two are device times too."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rg_lru
 
@@ -770,8 +843,10 @@ def _rg_lru_time(case, gen):
     kernel = lambda: rg_lru.rg_lru(a, gx, h0)
     plain = lambda: ref.rg_lru(a, gx, h0)
     if s == 1:
-        return graph_ms(kernel), graph_ms(plain), bms, by
-    return (cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1), bms, by)
+        dev = graph_ms(kernel)
+        return dev, graph_ms(plain), bms, by, dev
+    return (cuda_ms(kernel), cuda_ms(plain, iters=3, warmup=1), bms, by,
+            graph_ms(kernel, calls=20))
 
 
 def _mlstm_row(gen, launches, err):
@@ -818,15 +893,15 @@ def kernel_line(gen, launches, rg_launches, xl_launches, err):
                 _flash_row("flash_attention_d256", RG_PREFILL_CASE, gen,
                            rg_launches["flash_attention"],
                            err["flash_attention_d256"])]
-        ms, plain_ms, bms, by = _rg_lru_time(RG_LRU_PREFILL, gen)
-        dms, dplain_ms, dbms, dby = _rg_lru_time(RG_LRU_DECODE, gen)
+        ms, plain_ms, bms, by, gms = _rg_lru_time(RG_LRU_PREFILL, gen)
+        dms, dplain_ms, dbms, dby, _ = _rg_lru_time(RG_LRU_DECODE, gen)
         rows.append({
             "name": "rg_lru", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
             "replaces": "src/repro/kernels/rg_lru.py:48",
             "launches": rg_launches["rg_lru"], "max_abs_err": err["rg_lru"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "graph_ms": gms,
             # the same at the decode shape (B, 1, D), launched once a layer
             # in every decode step; device times from a CUDA graph
             "decode_ms": dms, "decode_plain_ms": dplain_ms,

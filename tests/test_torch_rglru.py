@@ -1,10 +1,15 @@
 """The port's RG-LRU path against the reference's on the same numpy inputs:
 the plain scan against the JAX oracle, the Pallas kernel (interpret mode)
 and the associative scan the reference's model runs on the CPU (and a torch
-copy of that scan, kept here as a test helper); the
-recurrent block on reduced recurrentgemma-9b; and the serving CLI. The CUDA
-kernel itself is held against the plain version on the card by
-``chip_smoke.py``."""
+copy of that scan, kept here as a test helper); the CUDA kernels' launch
+plan (which kernel, tiles, grid, shared memory) at every shape
+``chip_smoke.py`` launches; the recurrent block on reduced
+recurrentgemma-9b; and the serving CLI. The CUDA kernels themselves are
+held against the plain version on the card by ``chip_smoke.py``."""
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,7 @@ from repro.models.registry import build_model as jbuild_model
 from repro_torch.checkpoint.convert import params_from_numpy
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rg_lru as rg_lru_kernel
 from repro_torch.launch import serve
 from repro_torch.models import rglru
 
@@ -136,6 +142,117 @@ def test_rg_lru_dispatch_on_cpu_is_the_sequential_plain_version():
     h0, l0 = ops.rg_lru(at, gt)
     hz, lz = ops.rg_lru(at, gt, torch.zeros_like(ht))
     assert torch.equal(h0, hz) and torch.equal(l0, lz)
+
+
+# ------------------------------------------------------ the launch plan
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# every (B, S, D, dtype, h0) chip_smoke.py holds the kernels to
+SMOKE_CASES = _chip_smoke()._rg_lru_cases(rg_lru_kernel.TILE_S)
+H100_SMS, H100_BLOCK_SMEM = 132, 232_448
+
+
+def _computed(plan, b, s, d):
+    """How often each (b, t, c) is computed, walking the grid and the time
+    tiles as the kernels do."""
+    done = np.zeros((b, s, d), np.uint8)
+    assert plan.grid[1] == b
+    for x in range(plan.grid[0]):
+        c0 = x * plan.tile_d
+        for t0 in range(0, s, plan.tile_s):
+            t1 = min(s, t0 + plan.tile_s)
+            done[:, t0:t1, c0:min(d, c0 + plan.tile_d)] += 1
+    return done
+
+
+def _ring_copies(plan, n, shift, size):
+    """The offsets (from the block's first channel) each 16-byte copy of
+    one row brings in, for a block of n channels whose row starts ``shift``
+    elements past a 16-byte boundary, as ``copy_tile`` picks them."""
+    vec = 16 // size
+    chunks = rg_lru_kernel.ROW_BYTES // 16 + (0 if plan.aligned else 1)
+    return [range(j * vec - shift, (j + 1) * vec - shift)
+            for j in range(chunks) if j * vec - shift < n]
+
+
+@pytest.mark.parametrize("case", SMOKE_CASES, ids=str)
+def test_launch_plan_covers_each_element_once(case):
+    """Each (b, t, c) is computed once; in the ring, each of a row's
+    channels is brought in by exactly one 16-byte copy and every copy holds
+    one of them, at every shift a row can have; the block fits an H100 SM:
+    shared memory within 227 KB, its size that of the ring's stages."""
+    b, s, d, dtype, _ = case
+    size = getattr(torch, dtype).itemsize
+    vec = 16 // size
+    for aligned in (True, False):
+        plan = rg_lru_kernel.launch_plan(b, s, d, getattr(torch, dtype),
+                                         aligned=aligned)
+        assert (_computed(plan, b, s, d) == 1).all()
+        assert (plan.grid[0] - 1) * plan.tile_d < d  # no block without work
+        assert plan.tile_d <= 1024  # threads a block, one a channel
+        assert 0 <= plan.smem <= H100_BLOCK_SMEM and plan.blocks_per_sm >= 1
+        if plan.kernel == "step":
+            assert plan.stages == plan.smem == 0
+            continue
+        assert plan.tile_d * size == rg_lru_kernel.ROW_BYTES
+        assert plan.aligned == (aligned and d * size % 16 == 0)
+        # rows (b, t) start (b S + t) d elements past an aligned base
+        shifts = range(vec) if not plan.aligned else \
+            np.unique(np.arange(b * s) * d % vec)
+        assert plan.aligned <= (list(shifts) == [0])
+        for n in {plan.tile_d, d - (plan.grid[0] - 1) * plan.tile_d}:
+            for shift in shifts:
+                copies = _ring_copies(plan, n, int(shift), size)
+                got = np.concatenate([list(c) for c in copies])
+                got = got[(got >= 0) & (got < n)]
+                assert sorted(got) == list(range(n))
+                assert all(c.start < n and c.stop > 0 for c in copies)
+        chunks = rg_lru_kernel.ROW_BYTES // 16 + (0 if plan.aligned else 1)
+        assert plan.smem == plan.stages * 2 * plan.tile_s * chunks * 16
+
+
+def test_launch_plan_serving_prefill_fills_the_card_in_one_wave():
+    plan = rg_lru_kernel.launch_plan(4, 3072, 4096, torch.bfloat16)
+    assert plan.kernel == "ring" and plan.aligned
+    assert plan.grid == (64, 4) and plan.tile_d == 64
+    blocks = plan.grid[0] * plan.grid[1]
+    # every SM busy, every block resident at once
+    assert H100_SMS <= blocks <= H100_SMS * plan.blocks_per_sm
+    assert plan.blocks_per_sm >= 2
+    # the ring's tiles in flight ahead of the chain: >= 3 MB on the card
+    ahead = (plan.stages - 1) * plan.smem // plan.stages
+    assert blocks * ahead >= 3 << 20
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_plan_dispatches_by_sequence_length(dtype):
+    """Decode (S = 1) and anything shorter than one time tile take the
+    step kernel; from one tile on, the ring."""
+    tile = rg_lru_kernel.TILE_S
+    for s, kernel in ((1, "step"), (2, "step"), (tile - 1, "step"),
+                      (tile, "ring"), (tile + 1, "ring"), (3072, "ring")):
+        assert rg_lru_kernel.launch_plan(4, s, 4096, dtype).kernel == kernel
+    step = rg_lru_kernel.launch_plan(4, 1, 4096, dtype)
+    assert step.grid == (16, 4) and step.tile_d == 256 and step.smem == 0
+
+
+def test_launch_plan_matches_the_cuda_source_constants():
+    """The plan's numbers are the compiled instances' (the C entry point
+    refuses any other plan)."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/rg_lru.cu").read_text()
+    for name in ("STEP_THREADS", "U", "ROW_BYTES", "TILE_S", "STAGES"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(rg_lru_kernel, name), name
 
 
 # ------------------------------------------------------------ the block
