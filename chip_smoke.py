@@ -19,7 +19,12 @@ Phases; any failure exits non-zero:
      kernel) and, through the tensor-core kernel within one bf16 ulp, a bf16
      twin of each, head dims 128 and 256, a chunk of 40 and the xlstm-350m
      training shape (launched twice there: bit-identical), its m bit for
-     bit; int8 quantize / dequantize bit for bit on a full-width moment.
+     bit; int8 quantize / dequantize bit for bit on a full-width moment;
+     the flash backward (dq, dk, dv) against its plain version on every
+     flash case in f32 (2e-5) and bf16 (one bf16 ulp) and at the training
+     shape (8, 2048, 24, 2, 128) bf16, two launches there bit-identical,
+     the stats-emitting forward's o bit for bit the stats-free one's and
+     its m, l within 1e-4 of the plain forward's.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -43,9 +48,16 @@ Phases; any failure exits non-zero:
      bit. The step-8 state then goes through an int8-moment checkpoint:
      params bit-exact, moments within the half-step bound. The mLSTM kernel
      runs in every forward (7 launches a step).
+  3d. the fourth path, the training restart of slice 4: full-width
+     starcoder2-3b (2 of 30 layers, bf16 params, f32 AdamW moments) through
+     the same restart as 3c at 8 x 2048 tokens a step; the flash forward
+     (with row statistics) and the flash backward kernel run once a layer
+     in every step; besides them only quantize / dequantize run, for the
+     int8 checkpoint.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
-     (serving), step time and tokens/s (training), a device profile; then a
+     (serving), step time, tokens/s, save / flush / restore-after-kill and
+     int8 save / flush / restore seconds (training), a device profile; then a
      JSON line with each kernel's launches, time, bound, plain-version time
      and the time of one PyTorch library call for the same function.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -160,6 +172,28 @@ MLSTM_CASES = MLSTM_F32_CASES + [
     MLSTM_TRAIN_CASE]
 MLSTM_M_TOL = 1e-5
 
+# slice 4: starcoder2-3b training at full width, LAYERS of its 30 layers
+SC_BATCH, SC_SEQ, SC_STEPS = 8, 2048, 8
+SC_DRAM = 4 << 30     # a server's DRAM: 2 x ~3.4 GB at replication 2 over 4
+# the flash backward against its plain version (elementwise,
+# |kernel - plain| <= tol + tol |plain|, on the same q, k, v, o, m, l, dO):
+# f32 at the reference's f32 kernel tolerance of 2e-5 (both sum in f32, in
+# other orders); bf16 within one bf16 ulp (D256_BF16_TOL's argument: each
+# rounds one f32 result to bf16 once). Every forward case in both dtypes,
+# and the training shape. The forward's row statistics m, l (f32) against
+# the plain forward's within BWD_STATS_TOL (atol = rtol): the same scores
+# summed in another order, and in the bf16 kernel in the log2 domain.
+BWD_F32_TOL = 2e-5
+BWD_STATS_TOL = 1e-4
+TRAIN_ATTN_CASE = (SC_BATCH, SC_SEQ, SC_SEQ, 24, 2, 128, True, 0, 0.0, 0,
+                   "bfloat16", D256_BF16_TOL)
+# the forward at the training shape, at the reference's bf16 tolerance
+TRAIN_FWD_CASE = TRAIN_ATTN_CASE[:11] + (3e-2,)
+BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
+                          else D256_BF16_TOL,)
+             for case in ATTN_CASES + BF16_CASES + D256_CASES] \
+    + [TRAIN_ATTN_CASE]
+
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", flush=True)
@@ -196,15 +230,18 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 
 def _kernel_label(mangled: str) -> str:
-    """'mlstm_mma_kernel<512>' or 'dequantize_kernel<bf16>' from a
-    mangled template instance name; other names unchanged."""
+    """'mlstm_mma_kernel<512>', 'flash_bwd_dq_kernel<f32, 128>' or
+    'dequantize_kernel<bf16>' from a mangled template instance name,
+    'flash_bwd_delta_kernel' from a plain one; other names unchanged."""
     m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
     if not m:
-        return mangled
+        m = re.search(r"\d+([a-z][a-z_]*_kernel)E", mangled)
+        return m.group(1) if m else mangled
     name, args = m.groups()
-    dtype = ["bf16"] if "bfloat16" in args else \
-        ["f32"] if args.startswith("f") else []
-    return f"{name}<{', '.join(dtype + re.findall(r'L[bi](\d+)E', args))}>"
+    ints = re.findall(r"L[bi](\d+)E", args)
+    rest = re.sub(r"L[bi]\d+E", "", args)
+    dtype = ["bf16"] if "bfloat16" in rest else ["f32"] if rest == "f" else []
+    return f"{name}<{', '.join(dtype + ints)}>"
 
 
 def environment():
@@ -332,6 +369,88 @@ def check_rg_lru():
     return e
 
 
+def _within(what, out, plain, tol):
+    """|out - plain| <= tol + tol |plain| at every element, out finite and
+    of plain's dtype and shape; prints and returns the max error."""
+    import torch
+    check(out.dtype == plain.dtype and out.shape == plain.shape,
+          f"{what}: {out.dtype} {tuple(out.shape)}, plain {plain.dtype} "
+          f"{tuple(plain.shape)}")
+    check(torch.isfinite(out.float()).all().item(), f"{what}: non-finite")
+    diff = (out.float() - plain.float()).abs()
+    lim = tol + tol * plain.float().abs()
+    worst = torch.argmax(diff / lim).item()
+    e = diff.max().item()
+    print(f"{what}: max|kernel-plain| {e:.3e}; worst element "
+          f"{diff.reshape(-1)[worst].item():.3e} against its bound "
+          f"{lim.reshape(-1)[worst].item():.3e} (atol = rtol = {tol:g})",
+          flush=True)
+    check(bool((diff <= lim).all()), f"{what}: error above atol = rtol = "
+          f"{tol:g} at element {worst}")
+    return e
+
+
+def check_flash_bwd():
+    """The flash backward kernel against its plain version on every case of
+    BWD_CASES, fed the same q, k, v, dO and the forward kernel's o, m, l;
+    the stats-emitting forward against the stats-free one (o bit for bit)
+    and its m, l against the plain forward's; at the training shape two
+    launches bit-identical, and autograd through the kernel's Function
+    equal to the backward kernel on the saved tensors. Returns the max
+    error at the training shape. The inputs come from a generator of their
+    own, so these cases do not move the other kernels' inputs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    err = 0.0
+    for case in BWD_CASES:
+        *_, causal, window, cap, q_offset, dtype, tol = case
+        opts = dict(causal=causal, window=window, softcap=cap,
+                    q_offset=q_offset)
+        q, k, v = _attn_inputs(case, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        o_free = fa.flash_attention(q, k, v, **opts)
+        o, m, l = fa.flash_attention(q, k, v, return_stats=True, **opts)
+        _, pm, pl = ops.flash_chunked(q, k, v, return_stats=True, **opts)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o_free), f"flash {case}: o with stats differs "
+              f"from o without")
+        tag = f"[flash_bwd] {case[:-2]} {dtype}"
+        _within(f"{tag} m", m, pm, BWD_STATS_TOL)
+        _within(f"{tag} l", l, pl, BWD_STATS_TOL)
+        grads = fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts)
+        plain = ops.flash_bwd_chunked(q, k, v, o, m, l, do, **opts)
+        torch.cuda.synchronize()
+        e = max(_within(f"{tag} {name}", g, pg, tol)
+                for name, g, pg in zip(("dq", "dk", "dv"), grads, plain))
+        del plain, pm, pl, o_free
+        if case == TRAIN_ATTN_CASE:
+            err = e
+            again = fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            print(f"{tag}: two launches bit-identical in dq, dk, dv: {same}",
+                  flush=True)
+            check(same, f"flash_bwd {case}: two launches differ")
+            del again
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = fa.flash_attention(*leaves, **opts)
+            auto = torch.autograd.grad(out, leaves, do)
+            same = torch.equal(out, o) and all(
+                torch.equal(a, b) for a, b in zip(auto, grads))
+            print(f"{tag}: autograd through the kernel's Function equals o "
+                  f"and the backward kernel's dq, dk, dv bit for bit: {same}",
+                  flush=True)
+            check(same, f"flash {case}: autograd through the Function "
+                  f"differs from the kernels")
+            del leaves, out, auto
+        del q, k, v, do, o, m, l, grads
+    return err
+
+
 def _mlstm_inputs(case, gen):
     """q, k, v normal in the case's dtype; log_f = log(U(0.85, 0.999)) and
     log_i = 0.5 N(0, 1) in f32, as the reference's kernel tests draw them."""
@@ -357,7 +476,7 @@ def check_kernels(gen):
 
     err = {}
     for case in (ATTN_CASES + BF16_CASES + D256_CASES
-                 + [PREFILL_CASE, RG_PREFILL_CASE]):
+                 + [PREFILL_CASE, RG_PREFILL_CASE, TRAIN_FWD_CASE]):
         *_, causal, window, cap, q_offset, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -365,26 +484,17 @@ def check_kernels(gen):
         plain = ops.flash_chunked(q, k, v, causal=causal, window=window,
                                   softcap=cap, q_offset=q_offset)
         torch.cuda.synchronize()
-        # elementwise, as the reference's kernel tests hold it:
-        # |kernel - plain| <= tol + tol * |plain| at every element
-        diff = (out.float() - plain.float()).abs()
-        lim = tol + tol * plain.float().abs()
-        worst = torch.argmax(diff / lim).item()
-        e = diff.max().item()
-        print(f"[flash] {case[:-1]}: max|kernel-plain| {e:.3e}; worst "
-              f"element {diff.view(-1)[worst].item():.3e} against its bound "
-              f"{lim.view(-1)[worst].item():.3e} (atol = rtol = {tol:g})",
-              flush=True)
-        check(torch.isfinite(out.float()).all().item(), f"flash {case}: "
-              f"non-finite output")
-        check(bool((diff <= lim).all()), f"flash {case}: error above "
-              f"atol = rtol = {tol:g} at element {worst}")
+        # elementwise, as the reference's kernel tests hold it
+        e = _within(f"[flash] {case[:-1]}", out, plain, tol)
         if case == PREFILL_CASE:
             err["flash_attention"] = e
         if case == RG_PREFILL_CASE:
             err["flash_attention_d256"] = e
-        del q, k, v, out, plain, diff, lim
+        if case == TRAIN_FWD_CASE:
+            err["flash_attention_train"] = e
+        del q, k, v, out, plain
 
+    err["flash_attention_bwd"] = check_flash_bwd()
     err["rg_lru"] = check_rg_lru()
 
     for case in MLSTM_CASES:
@@ -562,8 +672,9 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
 def compare_restored(state, restored):
     """Every leaf of ``restored`` against the saved ``state``: same device,
     dtype and shape; AdamW moments within half an int8 step of their
-    block's scale (max|x| / 254, with f32 slack), everything else bit for
-    bit. Returns (leaves, int8 leaves, worst moment error as a share of its
+    block's scale (the step is max|x| / 127, floored at 1e-12 as the
+    quantizer floors it; with f32 slack), everything else bit for bit.
+    Returns (leaves, int8 leaves, worst moment error as a share of its
     bound)."""
     import torch
     from repro_torch.checkpoint import serializer as ser
@@ -579,7 +690,8 @@ def compare_restored(state, restored):
         if name.startswith("opt_state/.m/") or name.startswith(
                 "opt_state/.v/"):
             err = (out - leaf).abs().max().item()
-            lim = leaf.abs().max().item() / 254 * (1 + 1e-4)
+            lim = max(leaf.abs().max().item() / 127, 1e-12) / 2 \
+                * (1 + 1e-4)
             check(err <= lim, f"{name}: moment error {err} > {lim}")
             worst = max(worst, err / max(lim, 1e-30))
         else:
@@ -595,17 +707,20 @@ def _kernels():
     from repro_torch.kernels import mlstm
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import rg_lru
-    return (fa.flash_attention, rg_lru.rg_lru, mlstm.mlstm,
-            quant.quantize_blockwise, quant.dequantize_blockwise)
+    return (fa.flash_attention, fa.flash_attention_bwd, rg_lru.rg_lru,
+            mlstm.mlstm, quant.quantize_blockwise,
+            quant.dequantize_blockwise)
 
 
-def training_restart(cfg, device):
-    """Slice 3's path through ``launch/train.py::train_loop``, deterministic
-    on the card: run A takes XL_STEPS steps; run B takes half of them,
-    checkpoints unquantized into a burst buffer, loses server/0, restores
-    from the replicas into a state drawn from another seed and takes the
-    rest. B must equal A bit for bit. A's final state then makes an
-    int8-moment checkpoint in a fresh burst buffer, restored onto the card.
+def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
+    """A training path through ``launch/train.py::train_loop`` (slice 3's
+    xlstm-350m, slice 4's starcoder2-3b), deterministic on the card: run A
+    takes ``steps`` steps of ``batch`` x ``seq`` tokens; run B takes half of
+    them, checkpoints unquantized into a burst buffer of 4 servers of
+    ``dram_capacity`` bytes each, loses server/0, restores from the
+    replicas into a state drawn from another seed and takes the rest. B
+    must equal A bit for bit. A's final state then makes an int8-moment
+    checkpoint in a fresh burst buffer, restored onto the card.
 
     Returns (timings, launches, n_quant); launches are the kernel counts of
     the whole path. Raises SystemExit on any mismatch."""
@@ -620,11 +735,11 @@ def training_restart(cfg, device):
     for fn in kernels:
         fn.launches = 0
     t = {}
-    half = XL_STEPS // 2
-    kw = dict(global_batch=XL_BATCH, seq_len=XL_SEQ, log_every=1,
-              device=device)
-    bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=XL_DRAM)
-    state_a, hist_a, _ = train_loop(cfg, steps=XL_STEPS, ckpt_every=0,
+    half = steps // 2
+    kw = dict(global_batch=batch, seq_len=seq, log_every=1, device=device)
+    bbcfg = BBConfig(num_servers=4, num_clients=4,
+                     dram_capacity=dram_capacity)
+    state_a, hist_a, _ = train_loop(cfg, steps=steps, ckpt_every=0,
                                     seed=SEED, **kw)
     with BurstBufferSystem(bbcfg) as bb:
         _, hist_b, mgr = train_loop(cfg, steps=half, ckpt_every=half - 1,
@@ -636,12 +751,12 @@ def training_restart(cfg, device):
         bb.kill_server("server/0")
         print("[main] killed server/0; restoring from its replicas into a "
               f"state drawn from seed {SEED + 1}", flush=True)
-        state_b, hist_b2, mgr = train_loop(cfg, steps=XL_STEPS, ckpt_every=0,
+        state_b, hist_b2, mgr = train_loop(cfg, steps=steps, ckpt_every=0,
                                            bb_system=bb, restore=True,
                                            seed=SEED + 1, **kw)
         t["restore_s"] = mgr.metrics[half - 1].get("restore_s")
     check(t["restore_s"] is not None and [s for s, _ in hist_b2]
-          == list(range(half, XL_STEPS)), f"run B did not resume at step "
+          == list(range(half, steps)), f"run B did not resume at step "
           f"{half}: {hist_b2}")
     check(hist_b + hist_b2 == hist_a, f"losses of run B {hist_b + hist_b2} "
           f"!= run A's {hist_a}")
@@ -658,26 +773,27 @@ def training_restart(cfg, device):
           f"{len(a_leaves)} leaves of params and AdamW state", flush=True)
     del state_b, b_leaves
 
-    # the step-XL_STEPS state through an int8-moment checkpoint
+    # the step-``steps`` state through an int8-moment checkpoint
     state = {"params": state_a.params, "opt_state": state_a.opt_state,
-             "data": {"step": torch.tensor(XL_STEPS, dtype=torch.int32,
+             "data": {"step": torch.tensor(steps, dtype=torch.int32,
                                            device=device)}}
     target = map_tree(torch.zeros_like, state)
     with BurstBufferSystem(bbcfg) as bb:
         mgr = BBCheckpointManager(bb, quantize=True)
         t0 = time.perf_counter()
-        mgr.save(XL_STEPS, state)
+        mgr.save(steps, state)
         t["qsave_s"] = time.perf_counter() - t0
-        t["qckpt_bytes"] = mgr.metrics[XL_STEPS]["bytes"]
+        t["qckpt_bytes"] = mgr.metrics[steps]["bytes"]
         mgr.wait_flushes(timeout=600.0)
+        t["qflush_s"] = mgr.metrics[steps].get("flush_s")
         t0 = time.perf_counter()
         restored, step = mgr.restore(target)
         torch.cuda.synchronize()
         t["qrestore_s"] = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
-    check(step == XL_STEPS, f"restored step {step} != {XL_STEPS}")
+    check(step == steps, f"restored step {step} != {steps}")
     n_leaves, n_quant, worst = compare_restored(state, restored)
-    print(f"[main] int8 checkpoint of the step-{XL_STEPS} state: {n_leaves} "
+    print(f"[main] int8 checkpoint of the step-{steps} state: {n_leaves} "
           f"leaves ({n_quant} int8, real AdamW moments), {t['qckpt_bytes']} "
           f"bytes; params bit-exact, moments within {worst:.3f} of the "
           f"half-step bound", flush=True)
@@ -764,9 +880,18 @@ def serving_numbers(cfg, t, model, params, prompts, gen_tokens):
           flush=True)
 
 
-def _flash_row(name, case, gen, launches, err):
+def _causal_pairs(case):
+    """(q, k) pairs the causal and window masks leave, over every (b, h)."""
+    b, s, _, h, _, _, _, window, *_ = case
+    return b * h * sum(min(i + 1, window) if window else i + 1
+                       for i in range(s))
+
+
+def _flash_row(name, case, gen, launches, err, stats=False):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
-    the (q, k) pairs the causal and window masks leave. ``ms`` and
+    the (q, k) pairs the causal and window masks leave; ``stats``: the
+    kernel also writes the row statistics (the training path's forward),
+    m and l counted in its bytes. ``ms`` and
     ``library_ms`` are CUDA-event times of back-to-back calls from Python,
     which include whatever of each call's host cost the device does not
     hide; ``graph_ms`` and ``library_graph_ms`` are device times of one
@@ -779,9 +904,9 @@ def _flash_row(name, case, gen, launches, err):
     b, s, _, h, kv, d, causal, window, *_ = case
     q, k, v = _attn_inputs(case, gen)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    per_row = [min(i + 1, window) if window else i + 1 for i in range(s)]
-    pairs = b * h * sum(per_row)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    pairs = _causal_pairs(case)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
+        + (2 * 4 * b * s * h if stats else 0)
     bms, by = bound(nbytes, 4 * d * pairs, BF16_FLOPS)
     if window:
         pos = torch.arange(s, device="cuda")
@@ -792,7 +917,8 @@ def _flash_row(name, case, gen, launches, err):
     else:
         library = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
-    kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+    kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                        return_stats=stats)
     calls = 20 if pairs > 1e8 else 200   # graphs of ~10 to ~50 ms
     return {
         "name": name, "route": "cuda",
@@ -805,6 +931,54 @@ def _flash_row(name, case, gen, launches, err):
         "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library),
         "graph_ms": graph_ms(kernel, calls=calls),
         "library_graph_ms": graph_ms(library, calls=calls),
+    }
+
+
+def _flash_bwd_row(gen, launches, err):
+    """The backward kernel, its plain version and SDPA's backward at the
+    training shape. The bound: q, o, dO and dq, k, v, dk and dv in bf16 and
+    m, l in f32, each moved once; the reference's five products (S = q k^T,
+    dP = dO v^T, dv, dq, dk) over the (q, k) pairs the causal mask leaves,
+    2 D operations a pair each, against the bf16 tensor-core peak. The
+    library time is one ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+    on the same inputs in its (B, H, S, D) layout, timed alone."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+
+    case = TRAIN_ATTN_CASE
+    d, causal = case[5], case[6]
+    q, k, v = _attn_inputs(case, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    with torch.no_grad():
+        o, m, l = fa.flash_attention(q, k, v, causal=causal,
+                                     return_stats=True)
+    nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * 2 * m.numel()
+    bms, by = bound(nbytes, 5 * 2 * d * _causal_pairs(case), BF16_FLOPS)
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do,
+                                            causal=causal)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                  for a in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                              retain_graph=True)
+        library_ms = cuda_ms(library, iters=5, warmup=2)
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # no Pallas counterpart: the reference's backward is plain jnp
+        "replaces": "src/repro/kernels/ops.py:65",
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(kernel, iters=5, warmup=1),
+        "plain_ms": cuda_ms(lambda: ops.flash_bwd_chunked(
+            q, k, v, o, m, l, do, causal=causal), iters=3, warmup=1),
+        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+        "graph_ms": graph_ms(kernel, calls=5),
     }
 
 
@@ -877,11 +1051,12 @@ def _mlstm_row(gen, launches, err):
     }
 
 
-def kernel_line(gen, launches, rg_launches, xl_launches, err):
+def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err):
     """One row per kernel at the main paths' shapes. ``launches`` are the
-    counts of the starcoder2-3b run, ``rg_launches`` those of the
+    counts of the starcoder2-3b serving run, ``rg_launches`` those of the
     recurrentgemma-9b run, ``xl_launches`` those of the xlstm-350m
-    training run."""
+    training run, ``sc_launches`` those of the starcoder2-3b training
+    run."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import quantize as quant
@@ -934,42 +1109,93 @@ def kernel_line(gen, launches, rg_launches, xl_launches, err):
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
         rows.append(_mlstm_row(gen, xl_launches["mlstm"], err["mlstm"]))
+        # slice 4: the training path's forward (with row statistics)
+        rows.append(_flash_row("flash_attention_train", TRAIN_ATTN_CASE,
+                               gen, sc_launches["flash_attention"],
+                               err["flash_attention_train"], stats=True))
+    rows.append(_flash_bwd_row(gen, sc_launches["flash_attention_bwd"],
+                               err["flash_attention_bwd"]))
     return rows
+
+
+def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
+                  per_step):
+    """A training phase: ``training_restart`` and ``time_training`` under
+    torch's deterministic algorithms; the launch counts must be exactly
+    ``per_step`` launches a step (run A's steps and run B's) of each kernel
+    named there, the int8 checkpoint's quantize and dequantize launches,
+    and none of any other kernel. Prints the path's numbers and returns the
+    launch counts."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        t, launches, n_quant = training_restart(
+            cfg, device, batch=batch, seq=seq, steps=steps,
+            dram_capacity=dram_capacity)
+        want = {name: 0 for name in launches}
+        want.update({name: n * 2 * steps for name, n in per_step.items()})
+        want.update(quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
+        print(f"[main] launches in train -> save -> kill -> restore -> "
+              f"train -> int8 save -> restore: {launches} (expected "
+              f"{want})", flush=True)
+        check(all(launches[name] > 0 for name in per_step)
+              and launches == want, f"launch counts {launches} != {want}")
+        step_s, tok_s, peak_gb, layer_s = time_training(cfg, device, batch,
+                                                        seq)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[numbers] {cfg.name}: step {step_s:.3f}s ({tok_s:.1f} tok/s, "
+          f"B={batch}, S={seq}), peak device memory {peak_gb:.2f} GB",
+          flush=True)
+    print(f"[numbers] {cfg.name}: save {t['save_s']:.3f}s (ingest of "
+          f"{t['ckpt_bytes'] / 1e9:.3f} GB, unquantized), flush "
+          f"{t['flush_s']}s (off the critical path), restore after the "
+          f"kill {t['restore_s']:.3f}s", flush=True)
+    print(f"[numbers] {cfg.name}: int8 save {t['qsave_s']:.3f}s "
+          f"({t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), int8 "
+          f"flush {t['qflush_s']}s, int8 restore {t['qrestore_s']:.3f}s",
+          flush=True)
+    print(f"[numbers] {cfg.name}: one block forward and backward: "
+          + ", ".join(f"{kind} {sec:.3f}s" for kind, sec in layer_s.items()),
+          flush=True)
+    return launches
 
 
 def _layers(cfg, kind):
     return sum(unit.count(kind) * reps for unit, reps in cfg.segments)
 
 
-def time_training(cfg, device):
+def time_training(cfg, device, batch, seq):
     """Step time, tokens/s and peak device memory of the train step at the
-    main path's shape (three steps after a warm-up one, deterministic as on
-    the main path), and one profiled step."""
+    path's shape (three steps after a warm-up one, deterministic as on the
+    path), one profiled step, and one forward and backward of each layer
+    kind of the config."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.train import batch_to, build
 
     _, _, state, step_fn = build(cfg, seed=SEED, device=device)
-    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=XL_SEQ,
-                               global_batch=XL_BATCH)
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch)
     batches = [batch_to(next(pipe), device) for _ in range(4)]
     state, _ = step_fn(state, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for batch in batches[1:]:
-        state, _ = step_fn(state, batch)
+    for b in batches[1:]:
+        state, _ = step_fn(state, b)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (len(batches) - 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    device_profile(f"{cfg.name} train step (B={XL_BATCH}, S={XL_SEQ})",
+    device_profile(f"{cfg.name} train step (B={batch}, S={seq})",
                    lambda: step_fn(state, batches[0]))
-    layer_s = {kind: _layer_seconds(cfg, state.params, kind, device)
-               for kind in ("mlstm", "slstm")}
-    return step_s, XL_BATCH * XL_SEQ / step_s, peak_gb, layer_s
+    kinds = sorted({k for unit, _ in cfg.segments for k in unit})
+    layer_s = {kind: _layer_seconds(cfg, state.params, kind, device, batch,
+                                    seq) for kind in kinds}
+    return step_s, batch * seq / step_s, peak_gb, layer_s
 
 
-def _layer_seconds(cfg, params, kind, device, reps=2):
+def _layer_seconds(cfg, params, kind, device, batch, seq, reps=2):
     """Host-clock seconds of one forward and backward of the first
     ``kind`` block of the trained params on a bf16 (B, S, d_model) input,
     after a warm-up pass."""
@@ -981,12 +1207,14 @@ def _layer_seconds(cfg, params, kind, device, reps=2):
                  params["segments"]["seg0"][j])
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    x = torch.randn((XL_BATCH, XL_SEQ, cfg.d_model), generator=gen,
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen,
                     device=device).to(torch.bfloat16).requires_grad_(True)
+    ext = {"positions": torch.arange(seq, dtype=torch.int32,
+                                     device=device).expand(batch, seq)}
     apply = transformer.KINDS[kind].apply
 
     def run():
-        apply(cfg, p, x, {}).float().square().mean().backward()
+        apply(cfg, p, x, ext).float().square().mean().backward()
 
     run()
     torch.cuda.synchronize()
@@ -1029,8 +1257,8 @@ def main():
     t, launches, (model, params, prompts, n_quant) = serving_restart(
         cfg, device, batch=BATCH, prompt=PROMPT, gen_tokens=GEN,
         requests=REQUESTS, dram_capacity=2 << 30, train_state=True)
-    want = {"flash_attention": LAYERS * REQUESTS, "rg_lru": 0, "mlstm": 0,
-            "quantize_blockwise": n_quant,
+    want = {"flash_attention": LAYERS * REQUESTS, "flash_attention_bwd": 0,
+            "rg_lru": 0, "mlstm": 0, "quantize_blockwise": n_quant,
             "dequantize_blockwise": n_quant}
     print(f"[main] launches in save -> restore -> serve: {launches} "
           f"(expected {want})", flush=True)
@@ -1060,7 +1288,7 @@ def main():
                         gen_tokens=RG_GEN, requests=RG_REQUESTS,
                         dram_capacity=4 << 30, train_state=False)
     rg_want = {"flash_attention": _layers(rg_cfg, "attn_local")
-               * RG_REQUESTS,
+               * RG_REQUESTS, "flash_attention_bwd": 0,
                "rg_lru": _layers(rg_cfg, "rglru") * RG_GEN * RG_REQUESTS,
                "mlstm": 0, "quantize_blockwise": rg_quant,
                "dequantize_blockwise": rg_quant}
@@ -1087,33 +1315,29 @@ def main():
           f"{full.num_layers} -> {xl_cfg.num_layers}; "
           f"{xl_cfg.param_count()} params; batch {XL_BATCH} x {XL_SEQ} "
           f"tokens, {XL_STEPS} steps", flush=True)
-    torch.use_deterministic_algorithms(True)
-    try:
-        xl_t, xl_launches, xl_quant = training_restart(xl_cfg, device)
-        xl_want = {"flash_attention": 0, "rg_lru": 0,
-                   "mlstm": _layers(xl_cfg, "mlstm") * 2 * XL_STEPS,
-                   "quantize_blockwise": xl_quant,
-                   "dequantize_blockwise": xl_quant}
-        print(f"[main] launches in train -> save -> kill -> restore -> "
-              f"train -> int8 save -> restore: {xl_launches} (expected "
-              f"{xl_want})", flush=True)
-        check(xl_launches["mlstm"] > 0 and xl_launches == xl_want,
-              f"launch counts {xl_launches} != {xl_want}")
-        step_s, tok_s, peak_gb, layer_s = time_training(xl_cfg, device)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    print(f"[numbers] {xl_cfg.name}: step {step_s:.3f}s ({tok_s:.1f} tok/s, "
-          f"B={XL_BATCH}, S={XL_SEQ}, peak device memory {peak_gb:.2f} GB); "
-          f"save {xl_t['save_s']:.3f}s (ingest of "
-          f"{xl_t['ckpt_bytes'] / 1e9:.3f} GB, unquantized), flush "
-          f"{xl_t['flush_s']}s (off the critical path), restore after the "
-          f"kill {xl_t['restore_s']:.3f}s; int8 save {xl_t['qsave_s']:.3f}s "
-          f"({xl_t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
-          f"int8 restore {xl_t['qrestore_s']:.3f}s; one block forward and "
-          f"backward: mLSTM {layer_s['mlstm']:.3f}s, sLSTM "
-          f"{layer_s['slstm']:.3f}s", flush=True)
+    xl_launches = training_path(
+        xl_cfg, device, batch=XL_BATCH, seq=XL_SEQ, steps=XL_STEPS,
+        dram_capacity=XL_DRAM, per_step={"mlstm": _layers(xl_cfg, "mlstm")})
 
-    rows = kernel_line(gen, launches, rg_launches, xl_launches, err)
+    # phase 3d: slice 4's path, starcoder2-3b training through a server
+    # kill; depth cut to LAYERS as in phase 3
+    n = cfg.param_count()
+    ckpt = 2 * n + 2 * 4 * n          # bf16 params, f32 AdamW m and v
+    print(f"[main] {cfg.name} training, full width as in phase 3, params "
+          f"{cfg.param_dtype}, compute {cfg.compute_dtype}, grad "
+          f"accumulation and AdamW moments {cfg.grad_accum_dtype}; "
+          f"reduced: num_layers 30 -> {LAYERS}; {n} params; batch "
+          f"{SC_BATCH} x {SC_SEQ} tokens, {SC_STEPS} steps; unquantized "
+          f"checkpoint {ckpt / 1e9:.3f} GB, {2 * ckpt / 4 / 2**30:.2f} GiB "
+          f"a server at replication 2 over 4 servers of "
+          f"{SC_DRAM / 2**30:.0f} GiB DRAM", flush=True)
+    sc_launches = training_path(
+        cfg, device, batch=SC_BATCH, seq=SC_SEQ, steps=SC_STEPS,
+        dram_capacity=SC_DRAM,
+        per_step={"flash_attention": LAYERS, "flash_attention_bwd": LAYERS})
+
+    rows = kernel_line(gen, launches, rg_launches, xl_launches,
+                       sc_launches, err)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,14 @@
 // key length; f32 running max / sum / accumulator; masked scores are -1e30
 // and the final denominator is max(l, 1e-30), as in the TPU kernel.
 //
+// Row statistics for the backward: when the m / l pointers are not null,
+// each kernel also writes, per (b, row, head), m = the row max of the
+// scaled, soft-capped, masked scores and l = sum exp(s - m), in f32 and in
+// the natural-log convention of the reference's _flash_fwd (the bf16
+// kernel keeps its running max in the log2 domain and converts it once, at
+// the end). Writing them changes nothing of o: a launch with stats gives
+// the same bits of o as one without.
+//
 // Two kernels, chosen by dtype:
 //  * bfloat16 (every full-width path): flash_mma_kernel, both products on
 //    the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
@@ -86,6 +94,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------------ f32
 
@@ -97,6 +106,7 @@ template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
                   int Sq, int Sk, int H, int KV, int causal, int window,
                   float softcap, float scale, int q_offset) {
   constexpr int BQ = SIMT_BQ, BK = SIMT_BK, THREADS = SIMT_THREADS;
@@ -240,14 +250,19 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       ob[(size_t)row * q_row_stride + tx + 16 * j] = acc[i][j] / den;
+    if (m_out != nullptr && tx == 0) {
+      const size_t r = ((size_t)b * Sq + row) * H + h;
+      m_out[r] = m[i];
+      l_out[r] = l[i];
+    }
   }
 }
 
 template <int D>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KV, int causal, int window,
-                float softcap, float scale, int q_offset,
-                cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* m_out, float* l_out, int B, int Sq, int Sk, int H,
+                int KV, int causal, int window, float softcap, float scale,
+                int q_offset, cudaStream_t stream) {
   constexpr int P = D + 1;
   const size_t smem = sizeof(float) * ((size_t)SIMT_BQ * P +
                                        2 * (size_t)SIMT_BK * P +
@@ -259,8 +274,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + SIMT_BQ - 1) / SIMT_BQ, H, B);
   flash_simt_kernel<D><<<grid, SIMT_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      causal, window, softcap, scale, q_offset);
+      static_cast<const float*>(v), static_cast<float*>(o), m_out, l_out, Sq,
+      Sk, H, KV, causal, window, softcap, scale, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -348,7 +363,8 @@ template <int D>
 __global__ void __launch_bounds__(MmaPlan<D>::THREADS,
                                   MmaPlan<D>::BLOCKS_PER_SM)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
                  int Sk, int H, int KV, int causal, int window, float softcap,
                  float scale, int q_offset) {
   using Plan = MmaPlan<D>;
@@ -547,6 +563,20 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   // one reciprocal a row instead of 2 D IEEE divisions a thread
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (m_out != nullptr && (lane & 3) == 0) {
+    // the quad's lanes hold the same m and l; natural-log m, f32
+    const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+    const size_t r0 = ((size_t)b * Sq + row0) * H + h;
+    const size_t r1 = ((size_t)b * Sq + row1) * H + h;
+    if (row0 < Sq) {
+      m_out[r0] = m0 * LN2;
+      l_out[r0] = l0;
+    }
+    if (row1 < Sq) {
+      m_out[r1] = m1 * LN2;
+      l_out[r1] = l1;
+    }
+  }
 
   // the warp's 16 rows through its own rows of Qs (only this warp reads
   // them), then whole rows as 16-byte stores
@@ -572,10 +602,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int causal, int window,
-               float softcap, float scale, int q_offset,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* m_out, float* l_out, int B, int Sq, int Sk, int H,
+               int KV, int causal, int window, float softcap, float scale,
+               int q_offset, cudaStream_t stream) {
   using Plan = MmaPlan<D>;
   const int q_tiles = (Sq + Plan::BQ - 1) / Plan::BQ;
   if (q_tiles > 65535 || (long long)B * H > 0x7fffffffLL)
@@ -591,21 +621,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(B * H, q_tiles);
   flash_mma_kernel<D><<<grid, Plan::THREADS, Plan::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV,
-      causal, window, softcap, scale, q_offset);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), m_out, l_out, Sq,
+      Sk, H, KV, causal, window, softcap, scale, q_offset);
   return (int)cudaGetLastError();
 }
 
 template <bool BF16>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int D, int causal, int window,
-               float softcap, float scale, int q_offset, cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* m_out, float* l_out, int B, int Sq, int Sk, int H,
+               int KV, int D, int causal, int window, float softcap,
+               float scale, int q_offset, cudaStream_t stream) {
 #define FLASH_CASE(DD)                                                       \
   case DD:                                                                   \
-    return BF16 ? launch_mma<DD>(q, k, v, o, B, Sq, Sk, H, KV, causal,       \
-                                 window, softcap, scale, q_offset, stream)   \
-                : launch_simt<DD>(q, k, v, o, B, Sq, Sk, H, KV, causal,      \
-                                  window, softcap, scale, q_offset, stream);
+    return BF16 ? launch_mma<DD>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, \
+                                 causal, window, softcap, scale, q_offset,   \
+                                 stream)                                     \
+                : launch_simt<DD>(q, k, v, o, m_out, l_out, B, Sq, Sk, H,    \
+                                  KV, causal, window, softcap, scale,        \
+                                  q_offset, stream);
   switch (D) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -622,21 +655,26 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q: (B, Sq, H, D), k/v: (B, Sk, KV, D), o: (B, Sq, H, D), all contiguous
-// (bf16: 16-byte aligned), dtype 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t (0 = launched).
+// (bf16: 16-byte aligned), dtype 0 = float32, 1 = bfloat16; m / l: null,
+// or both (B, Sq, H) float32 for the row statistics. Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Sq,
-                                   int Sk, int H, int KV, int D, int dtype,
-                                   int causal, int window, float softcap,
-                                   float scale, int q_offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
+                                   const void* v, void* o, void* m, void* l,
+                                   int B, int Sq, int Sk, int H, int KV,
+                                   int D, int dtype, int causal, int window,
+                                   float softcap, float scale, int q_offset,
+                                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
+      (m == nullptr) != (l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* m_out = static_cast<float*>(m);
+  float* l_out = static_cast<float*>(l);
   if (dtype == 0)
-    return dispatch_d<false>(q, k, v, o, B, Sq, Sk, H, KV, D, causal, window,
-                             softcap, scale, q_offset, s);
+    return dispatch_d<false>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D,
+                             causal, window, softcap, scale, q_offset, s);
   if (dtype == 1)
-    return dispatch_d<true>(q, k, v, o, B, Sq, Sk, H, KV, D, causal, window,
-                            softcap, scale, q_offset, s);
+    return dispatch_d<true>(q, k, v, o, m_out, l_out, B, Sq, Sk, H, KV, D,
+                            causal, window, softcap, scale, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

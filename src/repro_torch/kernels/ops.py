@@ -15,7 +15,12 @@
 
 Counterpart of ``repro/kernels/ops.py`` for its five kernels (flash
 attention forward, the RG-LRU scan, the chunkwise mLSTM forward, blockwise
-int8 quantize / dequantize).
+int8 quantize / dequantize) and for the flash backward of its custom VJP
+(``_flash_vjp``): a tensor that needs a gradient goes through an autograd
+Function whose forward saves (q, k, v, o, m, l) and whose backward
+recomputes the probabilities chunk by chunk (the kernels on the card,
+``flash_bwd_chunked`` on the CPU), so training never keeps a chunk's
+probabilities for autograd.
 """
 from __future__ import annotations
 
@@ -38,16 +43,59 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, chunk=512):
     """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) -> (B,Sq,H,D)."""
     if q.is_cuda:
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_offset=q_offset)
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window, softcap=softcap,
+                                   q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _PlainFlashFunction.apply(q, k, v, causal, window, softcap,
+                                         q_offset, chunk)
     return flash_chunked(q, k, v, causal=causal, window=window,
                          softcap=softcap, q_offset=q_offset, chunk=chunk)
 
 
+class _PlainFlashFunction(torch.autograd.Function):
+    """The CPU counterpart of the reference's ``_flash_vjp``: forward
+    ``flash_chunked`` with its row statistics, backward
+    ``flash_bwd_chunked``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, chunk):
+        opts = dict(causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset, chunk=chunk)
+        o, m, l = flash_chunked(q, k, v, return_stats=True, **opts)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = flash_bwd_chunked(*ctx.saved_tensors, do, **ctx.opts)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None, None)
+
+
+def _attn_mask(qpos, kpos, causal, window):
+    """(Sq, C) bool: key ``kpos`` visible from query ``qpos``. The chunks
+    are cut at Sk, not padded, so every key of a chunk exists."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[1]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
-                  chunk=512):
+                  chunk=512, return_stats=False):
     """Online softmax over KV chunks of ``chunk`` keys, f32 statistics and
-    accumulator; the plain version of the flash kernel."""
+    accumulator; the plain version of the flash kernel. With
+    ``return_stats`` also the f32 row statistics (B, Sq, H): m, the row max
+    of the scaled, soft-capped, masked scores, and l = sum exp(s - m) (the
+    reference's ``_flash_chunked_jnp(..., return_stats=True)``)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -65,12 +113,7 @@ def flash_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
         s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb)
         if softcap:
             s = torch.tanh(s / softcap) * softcap
-        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
+        mask = _attn_mask(qpos, kpos, causal, window)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -79,7 +122,59 @@ def flash_chunked(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
         acc = acc * alpha[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    out = out.reshape(b, sq, h, d).to(q.dtype)
+    if return_stats:
+        return out, m.reshape(b, sq, h), l.reshape(b, sq, h)
+    return out
+
+
+def flash_bwd_chunked(q, k, v, o, m, l, do, *, causal=True, window=0,
+                      softcap=0.0, q_offset=0, chunk=512):
+    """The flash backward, chunk for chunk the reference's ``_flash_bwd``:
+    per KV chunk recompute p = exp(sc - m) / l, then dv = p^T dO,
+    dp = dO v^T, ds = p (dp - D) [(1 - (sc/cap)^2) under softcap] d^-0.5,
+    dq += ds k and dk = ds^T q, with D = rowsum(dO o); dk and dv summed over
+    each KV head's query group. f32 throughout (o and dO upcast as stored);
+    m, l: (B, Sq, H) f32 from ``flash_chunked(..., return_stats=True)`` or
+    the forward kernel. Returns (dq, dk, dv) in q's, k's and v's dtypes;
+    the plain version of the backward kernel."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    chunk = min(chunk, sk)
+    scale = d ** -0.5
+    shape = (b, sq, kvh, g)
+    qf = q.float().reshape(*shape, d)
+    go = do.float().reshape(*shape, d)
+    of = o.float().reshape(*shape, d)
+    m = m.reshape(shape)
+    linv = 1.0 / torch.clamp_min(l.reshape(shape), 1e-30)
+    delta = (go * of).sum(dim=-1)
+    qpos = (torch.arange(sq, device=q.device) + q_offset)[:, None]
+
+    dq = torch.zeros((*shape, d), device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        kpos = torch.arange(c0, c0 + kb.shape[1], device=q.device)[None, :]
+        s = torch.einsum("bqkgd,bckd->bqkgc", qf * scale, kb)
+        sc = torch.tanh(s / softcap) * softcap if softcap else s
+        mask = _attn_mask(qpos, kpos, causal, window)
+        p = torch.where(mask[None, :, None, None, :],
+                        torch.exp(sc - m[..., None]), 0.0) * linv[..., None]
+        dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p, go))
+        dp = torch.einsum("bqkgd,bckd->bqkgc", go, vb)
+        ds = p * (dp - delta[..., None])
+        if softcap:
+            ds = ds * (1.0 - torch.square(sc / softcap))
+        ds = ds * scale
+        dq = dq + torch.einsum("bqkgc,bckd->bqkgd", ds, kb)
+        dks.append(torch.einsum("bqkgc,bqkgd->bckd", ds, qf))
+    dk = torch.cat(dks, dim=1)
+    dv = torch.cat(dvs, dim=1)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

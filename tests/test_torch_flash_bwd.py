@@ -1,0 +1,201 @@
+"""The port's flash-attention backward against the reference's on the CPU:
+the gradients of the port's CPU autograd Function against ``jax.vjp``
+through the reference's custom VJP (``repro/kernels/ops.py::_flash_vjp``),
+the plain backward ``flash_bwd_chunked`` against autograd through the plain
+forward, the forward's row statistics against
+``_flash_chunked_jnp(..., return_stats=True)``, the dispatch of a CPU
+tensor that needs a gradient, and the wrappers' refusals. The CUDA
+kernels themselves are held against these plain versions on the card by
+``chip_smoke.py``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as fa
+
+# the reference's ATTN_CASES (tests/test_kernels.py), a q offset with
+# Sq < Sk (the last 64 queries of 200 keys) and a window that ends inside
+# chunks: (B, Sq, Sk, H, KV, D, causal, window, softcap, q_offset, dtype)
+ATTN_CASES = [
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0, 0, "float32"),
+    (2, 96, 96, 4, 2, 32, True, 0, 0.0, 0, "float32"),
+    (1, 128, 128, 8, 2, 64, True, 48, 0.0, 0, "float32"),
+    (1, 64, 64, 2, 1, 128, False, 0, 0.0, 0, "float32"),
+    (1, 128, 128, 4, 4, 64, True, 0, 20.0, 0, "float32"),
+    (1, 128, 128, 4, 2, 64, True, 0, 0.0, 0, "bfloat16"),
+    (2, 80, 80, 4, 4, 48, True, 0, 0.0, 0, "float32"),      # ragged seq
+]
+EXTRA_CASES = [
+    (1, 64, 200, 4, 2, 32, True, 0, 0.0, 136, "float32"),   # q offset
+    (1, 160, 160, 4, 2, 32, True, 100, 0.0, 0, "float32"),  # window
+]
+# chunks of 48 keys: a ragged last chunk in every case, padded by the
+# reference and cut short by the port
+CHUNK = 48
+# the port's gradients against jax.vjp through _flash_vjp, as
+# |port - reference| / (1 + |reference|) over all elements: f32 sums in
+# other orders, measured up to 1.0e-6, held at the reference's f32 kernel
+# tolerance, 2e-5; bf16 (each rounds its f32 results to bf16 once)
+# measured up to 6.0e-5, held at the reference's bf16 tolerance, 3e-2
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _opts(case):
+    *_, causal, window, cap, q_offset, _ = case
+    return dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+
+
+def _inputs(case, seed=7):
+    """q, k, v and the output gradient as numpy f32, from one seed."""
+    b, sq, sk, h, kv, d = case[:6]
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.normal(size=s).astype(np.float32)
+    return mk(b, sq, h, d), mk(b, sk, kv, d), mk(b, sk, kv, d), mk(b, sq, h, d)
+
+
+def _torch(a, dtype, grad=False):
+    return torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_(grad)
+
+
+def _close(out, exp, tol, what):
+    np.testing.assert_allclose(np.asarray(out, np.float32),
+                               np.asarray(exp, np.float32), atol=tol,
+                               rtol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + EXTRA_CASES)
+def test_port_gradients_match_reference_vjp(case, monkeypatch):
+    """dq, dk, dv of the port's CPU Function against ``jax.vjp`` of the
+    reference's ``ops.flash_attention`` on the CPU, which goes through
+    ``_flash_vjp`` (the Pallas path, taken in interpret mode, has no VJP)."""
+    monkeypatch.delenv("REPRO_FORCE_INTERPRET", raising=False)
+    dtype = case[-1]
+    q, k, v, do = _inputs(case)
+    jdt = getattr(jnp, dtype)
+    fn = lambda q_, k_, v_: jops.flash_attention(q_, k_, v_, chunk=CHUNK,
+                                                 **_opts(case))
+    jo, vjp = jax.vjp(fn, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do, jdt))
+    leaves = [_torch(x, dtype, grad=True) for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, chunk=CHUNK, **_opts(case))
+    assert type(out.grad_fn).__name__ == "_PlainFlashFunctionBackward"
+    grads = torch.autograd.grad(out, leaves, _torch(do, dtype))
+    _close(out.detach().float(), jo, TOL[dtype], "o")
+    for name, g, jg in zip(("dq", "dk", "dv"), grads, jgrads):
+        assert g.dtype == leaves[0].dtype and g.shape == jg.shape, name
+        _close(g.float(), jg, TOL[dtype], name)
+
+
+# the plain backward against autograd through the plain forward, both in
+# f32 on the same tensors: measured up to 1.6e-6 (as above); held
+# elementwise to atol = rtol = 1e-5
+PLAIN_TOL = 1e-5
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in ATTN_CASES + EXTRA_CASES if c[-1] == "float32"])
+def test_plain_backward_matches_autograd(case):
+    q, k, v, do = (_torch(x, "float32") for x in _inputs(case, seed=3))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = ops.flash_chunked(*leaves, chunk=CHUNK, **_opts(case))
+    exp = torch.autograd.grad(out, leaves, do)
+    o, m, l = ops.flash_chunked(q, k, v, chunk=CHUNK, return_stats=True,
+                                **_opts(case))
+    assert torch.equal(o, out.detach())
+    got = ops.flash_bwd_chunked(q, k, v, o, m, l, do, chunk=CHUNK,
+                                **_opts(case))
+    for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+        torch.testing.assert_close(g, e, atol=PLAIN_TOL, rtol=PLAIN_TOL,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + EXTRA_CASES)
+def test_row_stats_match_reference(case):
+    """m and l of ``flash_chunked(..., return_stats=True)``, (B, Sq, H),
+    against the reference's (B, Sq, KV, G) statistics: measured up to
+    5.9e-7 (as above; bf16 inputs are upcast alike); held to 5e-6."""
+    dtype = case[-1]
+    q, k, v, _ = _inputs(case)
+    jdt = getattr(jnp, dtype)
+    _, jm, jl = jops._flash_chunked_jnp(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), chunk=CHUNK,
+        return_stats=True, **_opts(case))
+    o, m, l = ops.flash_chunked(*(_torch(x, dtype) for x in (q, k, v)),
+                                chunk=CHUNK, return_stats=True,
+                                **_opts(case))
+    b, sq, h = case[0], case[1], case[3]
+    assert m.shape == l.shape == (b, sq, h)
+    assert m.dtype == l.dtype == torch.float32
+    _close(m, np.asarray(jm).reshape(b, sq, h), 5e-6, "m")
+    _close(l, np.asarray(jl).reshape(b, sq, h), 5e-6, "l")
+
+
+def test_cpu_tensor_that_needs_a_gradient_takes_the_plain_function():
+    """The plain Function, which saves (q, k, v, o, m, l) as the reference's
+    ``_flash_fwd`` does, and no kernel library is loaded or launched;
+    without a gradient the plain forward runs alone."""
+    case = ATTN_CASES[1]
+    q, k, v, do = (_torch(x, "float32") for x in _inputs(case))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, chunk=CHUNK, **_opts(case))
+    saved = out.grad_fn.saved_tensors
+    b, sq, h = case[0], case[1], case[3]
+    assert [tuple(t.shape) for t in saved] == [
+        tuple(q.shape), tuple(k.shape), tuple(v.shape), tuple(q.shape),
+        (b, sq, h), (b, sq, h)]
+    grads = torch.autograd.grad(out, leaves, do)
+    o, m, l = ops.flash_chunked(q, k, v, chunk=CHUNK, return_stats=True,
+                                **_opts(case))
+    exp = ops.flash_bwd_chunked(q, k, v, o, m, l, do, chunk=CHUNK,
+                                **_opts(case))
+    assert all(torch.equal(g, e) for g, e in zip(grads, exp))
+    with torch.no_grad():
+        plain = ops.flash_attention(*leaves, chunk=CHUNK, **_opts(case))
+    assert plain.grad_fn is None and torch.equal(plain, o)
+    assert fa._fwd is None and fa._bwd is None and build._libs == {}
+    assert fa.flash_attention.launches == 0
+    assert fa.flash_attention_bwd.launches == 0
+
+
+def _refusals():
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt)
+    q, kv, st = z(1, 8, 4, 16), z(1, 8, 2, 16), z(1, 8, 4)
+    fwd = lambda *a: fa.flash_attention(*a)
+    bwd = lambda q_, k_, v_, o=q, m=st, l=st, do=q: fa.flash_attention_bwd(
+        q_, k_, v_, o, m, l, do)
+    return [
+        ("fwd half", fwd, (z(1, 8, 4, 16, dt=torch.float16),
+                           z(1, 8, 2, 16, dt=torch.float16),
+                           z(1, 8, 2, 16, dt=torch.float16)), "dtypes"),
+        ("fwd mixed", fwd, (q, kv.bfloat16(), kv), "dtypes"),
+        ("fwd head dim 80", fwd, (z(1, 8, 4, 80), z(1, 8, 2, 80),
+                                  z(1, 8, 2, 80)), "head dim"),
+        ("fwd groups", fwd, (q, z(1, 8, 3, 16), z(1, 8, 3, 16)), "shapes"),
+        ("fwd strided", fwd, (z(1, 4, 8, 16).transpose(1, 2), kv, kv),
+         "contiguous"),
+        ("fwd on the cpu", fwd, (q, kv, kv), "CUDA"),
+        ("bwd stats dtype", lambda *a: bwd(*a, m=st.double()), (q, kv, kv),
+         "dtypes"),
+        ("bwd dO shape", lambda *a: bwd(*a, do=z(1, 8, 4, 32)), (q, kv, kv),
+         "shapes"),
+        ("bwd stats shape", lambda *a: bwd(*a, l=z(1, 4, 8)), (q, kv, kv),
+         "shapes"),
+        ("bwd strided dO", lambda *a: bwd(
+            *a, do=z(1, 4, 8, 16).transpose(1, 2)), (q, kv, kv),
+         "contiguous"),
+        ("bwd on the cpu", bwd, (q, kv, kv), "CUDA"),
+    ]
+
+
+@pytest.mark.parametrize("name,call,args,match", _refusals(),
+                         ids=[r[0] for r in _refusals()])
+def test_wrappers_refuse_before_any_build(name, call, args, match):
+    """Dtype, head dim, shape and contiguity are checked before the device,
+    and all of it before a kernel library is built or loaded."""
+    with pytest.raises(ValueError, match=match):
+        call(*args)
+    assert fa._fwd is None and fa._bwd is None and build._libs == {}

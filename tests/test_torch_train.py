@@ -1,11 +1,12 @@
 """The port's training path against the reference's, on the CPU: the LR
 schedules, global-norm clipping, one AdamW update and the loss from
-identical inputs; K train steps of reduced xlstm-350m from one
-JAX-initialised state on the same SyntheticLMPipeline batches; the torch
-counterpart of the reference's bit-exact restore after a burst-buffer
-server is killed; a checkpoint written by the reference's ``train_loop``
-resumed by the port's; and the training CLI. The mLSTM kernel itself runs
-in ``chip_smoke.py``'s training restart on the card."""
+identical inputs; K train steps of reduced xlstm-350m and of reduced
+starcoder2-3b from one JAX-initialised state on the same
+SyntheticLMPipeline batches; the torch counterpart of the reference's
+bit-exact restore after a burst-buffer server is killed; a checkpoint
+written by the reference's ``train_loop`` resumed by the port's; and the
+training CLI. The mLSTM and flash kernels themselves run in
+``chip_smoke.py``'s training restarts on the card."""
 import time
 
 import jax
@@ -41,6 +42,9 @@ from repro_torch.runtime.train_step import (TrainState, cross_entropy,
                                             make_train_step)
 
 ARCH = "xlstm-350m"
+# the architectures trained against the reference: xLSTM (mLSTM, sLSTM) and
+# the north star's dense attention model (flash forward and backward)
+TRAIN_ARCHS = ("xlstm-350m", "starcoder2-3b")
 SEQ, BATCH, DATA_SEED = 16, 4, 11
 
 
@@ -149,17 +153,19 @@ def _port_state(jstate):
                       params_from_numpy(js.opt_state, device="cpu"))
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """Reduced xlstm-350m in both packages from one JAX train state, each
-    with AdamW at the constant ``LR``: (jax cfg, model, optimizer, state;
-    port cfg, model, optimizer, state). The state has taken one reference
+@pytest.fixture(scope="module", params=TRAIN_ARCHS)
+def pair(request):
+    """A reduced ``TRAIN_ARCHS`` model in both packages from one JAX train
+    state, each with AdamW at the constant ``LR``: (jax cfg, model,
+    optimizer, state; port cfg, model, optimizer, state). The state has
+    taken one reference
     step on a batch of another stream, so that its moments are not zero:
     from zero moments AdamW moves every element by ~LR * sign(grad), and
     the few elements whose gradient is within the two packages' rounding
     of zero move by ~LR in either direction (their update is covered bit
     for bit by test_adamw_update_matches_reference)."""
-    jcfg, cfg = jreduced(jget_config(ARCH)), reduced(get_config(ARCH))
+    arch = request.param
+    jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
     jmodel = jbuild_model(jcfg)
     jopt = JAdamW(lr=jconstant(LR))
     jstate = jts.init_train_state(jcfg, jmodel, jopt, jax.random.PRNGKey(0))
@@ -201,7 +207,8 @@ def _assert_update_close(got, exp, before, tol):
 # later batches: xLSTM's exponential gates) agrees to 5e-6 to 9.7e-4
 # relative, batch by batch; held to 2e-3. Per leaf, the step's param change
 # and the moments agree to <= 2.2e-3 of their norm (all measured); held to
-# 1e-2
+# 1e-2. starcoder2-3b (grad norm 3.7 to 6.6) agrees closer: loss 1.7e-7,
+# grad norm 1.3e-6, params' change and moments 3.8e-5 (measured)
 LOSS_TOL, GNORM_TOL, STEP_TOL = 1e-5, 2e-3, 1e-2
 
 
@@ -335,6 +342,17 @@ def test_reference_train_loop_checkpoint_resumes_in_torch(pair, tmp_path):
 def test_train_cli_runs_reduced_xlstm_on_cpu(capsys):
     train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps",
                 "3", "--batch", "2", "--seq", "32", "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    assert "[train] step 0 loss" in out
+    assert "[ckpt] step 2: ingest" in out
+
+
+def test_train_cli_default_arch_runs_reduced_starcoder2_on_cpu(capsys):
+    """The CLI's default ``--arch`` is starcoder2-3b: its reduced config
+    trains (the flash backward's plain Function on the CPU) and
+    checkpoints."""
+    train.main(["--reduced", "--device", "cpu", "--steps", "3", "--batch",
+                "2", "--seq", "32", "--ckpt-every", "2"])
     out = capsys.readouterr().out
     assert "[train] step 0 loss" in out
     assert "[ckpt] step 2: ingest" in out
