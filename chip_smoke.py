@@ -21,10 +21,15 @@ Phases; any failure exits non-zero:
      training shape (launched twice there: bit-identical), its m bit for
      bit; int8 quantize / dequantize bit for bit on a full-width moment;
      the flash backward (dq, dk, dv) against its plain version on every
-     flash case in f32 (2e-5) and bf16 (one bf16 ulp) and at the training
-     shape (8, 2048, 24, 2, 128) bf16, two launches there bit-identical,
-     the stats-emitting forward's o bit for bit the stats-free one's and
-     its m, l within 1e-4 of the plain forward's.
+     flash case in f32 (2e-5) and bf16 (one bf16 ulp), on bf16 cases at the
+     tensor-core kernels' edges (head dim 16, a 12-head GQA group, a window
+     edge inside a ragged tile, q_offset with Sq < Sk, softcap, non-causal
+     Sq != Sk) and at the training shape (8, 2048, 24, 2, 128) bf16, two
+     launches there bit-identical; each case prints the device kernels it
+     ran (the profiler's names), which must be the tensor-core ones for
+     bf16 at head dims up to 128 and the CUDA-core ones for the rest; the
+     stats-emitting forward's o bit for bit the stats-free one's and its
+     m, l within 1e-4 of the plain forward's.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -189,10 +194,37 @@ TRAIN_ATTN_CASE = (SC_BATCH, SC_SEQ, SC_SEQ, 24, 2, 128, True, 0, 0.0, 0,
                    "bfloat16", D256_BF16_TOL)
 # the forward at the training shape, at the reference's bf16 tolerance
 TRAIN_FWD_CASE = TRAIN_ATTN_CASE[:11] + (3e-2,)
+# bf16 cases at the edges of the tensor-core backward (64-key dk / dv
+# tiles, 64-row dq tiles, 16-key warp slices): head dim 16, a GQA group of
+# 12 (H 24, KV 2) at a short S, Sk not a multiple of 64 with a window edge
+# inside tiles, a q offset with Sq < Sk and Sq not a multiple of 64,
+# softcap with GQA at D = 128, and non-causal with Sq != Sk
+BWD_EDGE_CASES = [
+    (1, 100, 100, 4, 2, 16, True, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
+    (2, 256, 256, 24, 2, 128, True, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
+    (1, 150, 150, 8, 2, 64, True, 40, 0.0, 0, "bfloat16", D256_BF16_TOL),
+    (1, 72, 200, 4, 1, 64, True, 0, 0.0, 128, "bfloat16", D256_BF16_TOL),
+    (1, 160, 160, 8, 2, 128, True, 0, 30.0, 0, "bfloat16", D256_BF16_TOL),
+    (1, 96, 130, 4, 2, 32, False, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
+]
 BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
                           else D256_BF16_TOL,)
              for case in ATTN_CASES + BF16_CASES + D256_CASES] \
-    + [TRAIN_ATTN_CASE]
+    + BWD_EDGE_CASES + [TRAIN_ATTN_CASE]
+
+
+def bwd_kernels(case):
+    """The device kernels the backward must run on a case: bf16 at head
+    dims up to 128 on the tensor cores, the rest on the CUDA cores."""
+    d, dtype = case[5], case[10]
+    if dtype == "bfloat16" and d <= 128:
+        names = [f"flash_bwd_mma_dkdv_kernel<{d}>",
+                 f"flash_bwd_mma_dq_kernel<{d}>"]
+    else:
+        t = "bf16" if dtype == "bfloat16" else "f32"
+        names = [f"flash_bwd_dkdv_kernel<{t}, {d}>",
+                 f"flash_bwd_dq_kernel<{t}, {d}>"]
+    return sorted(names + ["flash_bwd_delta_kernel"])
 
 
 def fail(msg: str):
@@ -229,19 +261,53 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # ------------------------------------------------------------------ phase 1
 
 
-def _kernel_label(mangled: str) -> str:
+def _kernel_label(name: str) -> str:
     """'mlstm_mma_kernel<512>', 'flash_bwd_dq_kernel<f32, 128>' or
-    'dequantize_kernel<bf16>' from a mangled template instance name,
+    'dequantize_kernel<bf16>' from a template instance's name, mangled (as
+    ptxas prints it) or demangled (as the profiler does),
     'flash_bwd_delta_kernel' from a plain one; other names unchanged."""
-    m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", name)
+    if m:
+        kernel, args = m.groups()
+        ints = re.findall(r"L[bi](\d+)E", args)
+        rest = re.sub(r"L[bi]\d+E", "", args)
+        dtype = ["bf16"] if "bfloat16" in rest \
+            else ["f32"] if rest == "f" else []
+        return f"{kernel}<{', '.join(dtype + ints)}>"
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)E", name)
+    if m:
+        return m.group(1)
+    m = re.search(r"([a-z][a-z_]*_kernel)(?:<([\w, ]*)>)?\(", name)
     if not m:
-        m = re.search(r"\d+([a-z][a-z_]*_kernel)E", mangled)
-        return m.group(1) if m else mangled
-    name, args = m.groups()
-    ints = re.findall(r"L[bi](\d+)E", args)
-    rest = re.sub(r"L[bi]\d+E", "", args)
-    dtype = ["bf16"] if "bfloat16" in rest else ["f32"] if rest == "f" else []
-    return f"{name}<{', '.join(dtype + ints)}>"
+        return name
+    args = [a.strip() for a in (m.group(2) or "").split(",") if a.strip()]
+    dtype = [{"__nv_bfloat16": "bf16", "float": "f32"}.get(a, a)
+             for a in args if not a.isdigit()]
+    ints = [a for a in args if a.isdigit()]
+    return f"{m.group(1)}<{', '.join(dtype + ints)}>" if args \
+        else m.group(1)
+
+
+# a kernel of csrc/*.cu by the profiler's (demangled) name
+PORT_KERNEL = re.compile(
+    r"\(anonymous namespace\)::(flash|rg_lru|mlstm|quantize|dequantize)_"
+    r"\w*kernel\b")
+
+
+def device_kernels(fn):
+    """``fn()`` and the sorted labels of the port's kernels it launched
+    (torch.profiler; fails if none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = sorted({_kernel_label(e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and PORT_KERNEL.search(e.name)})
+    check(bool(names), "the profiler recorded no kernel of the port")
+    return out, names
 
 
 def environment():
@@ -397,15 +463,16 @@ def check_flash_bwd():
     and its m, l against the plain forward's; at the training shape two
     launches bit-identical, and autograd through the kernel's Function
     equal to the backward kernel on the saved tensors. Returns the max
-    error at the training shape. The inputs come from a generator of their
-    own, so these cases do not move the other kernels' inputs."""
+    error at the training shape and the device kernels it ran there. The
+    inputs come from a generator of their own, so these cases do not move
+    the other kernels' inputs."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
-    err = 0.0
+    err, train_ran = 0.0, []
     for case in BWD_CASES:
         *_, causal, window, cap, q_offset, dtype, tol = case
         opts = dict(causal=causal, window=window, softcap=cap,
@@ -421,14 +488,18 @@ def check_flash_bwd():
         tag = f"[flash_bwd] {case[:-2]} {dtype}"
         _within(f"{tag} m", m, pm, BWD_STATS_TOL)
         _within(f"{tag} l", l, pl, BWD_STATS_TOL)
-        grads = fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts)
+        grads, ran = device_kernels(
+            lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts))
+        print(f"{tag}: kernels {', '.join(ran)}", flush=True)
+        check(ran == bwd_kernels(case), f"flash_bwd {case}: ran {ran}, not "
+              f"{bwd_kernels(case)}")
         plain = ops.flash_bwd_chunked(q, k, v, o, m, l, do, **opts)
         torch.cuda.synchronize()
         e = max(_within(f"{tag} {name}", g, pg, tol)
                 for name, g, pg in zip(("dq", "dk", "dv"), grads, plain))
         del plain, pm, pl, o_free
         if case == TRAIN_ATTN_CASE:
-            err = e
+            err, train_ran = e, ran
             again = fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts)
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -448,7 +519,7 @@ def check_flash_bwd():
                   f"differs from the kernels")
             del leaves, out, auto
         del q, k, v, do, o, m, l, grads
-    return err
+    return err, train_ran
 
 
 def _mlstm_inputs(case, gen):
@@ -467,7 +538,8 @@ def _mlstm_inputs(case, gen):
 
 def check_kernels(gen):
     """Each kernel against its plain version on the same card inputs.
-    Returns the max error at the main paths' shapes, by kernel row."""
+    Returns the max error at the main paths' shapes, by kernel row, and the
+    device kernels the flash backward ran at the training shape."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as fa
@@ -494,7 +566,7 @@ def check_kernels(gen):
             err["flash_attention_train"] = e
         del q, k, v, out, plain
 
-    err["flash_attention_bwd"] = check_flash_bwd()
+    err["flash_attention_bwd"], bwd_ran = check_flash_bwd()
     err["rg_lru"] = check_rg_lru()
 
     for case in MLSTM_CASES:
@@ -572,7 +644,7 @@ def check_kernels(gen):
               f"differs from its plain version")
         e = max(e, de)
     err["dequantize_blockwise"] = e
-    return err
+    return err, bwd_ran
 
 
 # ------------------------------------------------------------------ phase 3
@@ -826,11 +898,16 @@ def device_profile(what: str, fn):
               flush=True)
         return
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    port = [(_kernel_label(name), ms) for name, ms in top
+            if PORT_KERNEL.search(name)]
     print(f"[profile] {what}: wall {wall_ms:.3f} ms (traced), device busy "
           f"{busy:.3f} ms = {100 * busy / wall_ms:.1f}% (idle "
           f"{100 - 100 * busy / wall_ms:.1f}%); top: " + "; ".join(
-              f"{name[:60]} {ms:.3f} ms" for name, ms in top), flush=True)
+              f"{name[:60]} {ms:.3f} ms" for name, ms in top[:6])
+          + "; the port's kernels: " + ("; ".join(
+              f"{name} {ms:.3f} ms" for name, ms in port) or "none"),
+          flush=True)
 
 
 def time_serving(cfg, model, params, prompts, gen_tokens):
@@ -934,7 +1011,7 @@ def _flash_row(name, case, gen, launches, err, stats=False):
     }
 
 
-def _flash_bwd_row(gen, launches, err):
+def _flash_bwd_row(gen, launches, err, ran):
     """The backward kernel, its plain version and SDPA's backward at the
     training shape. The bound: q, o, dO and dq, k, v, dk and dv in bf16 and
     m, l in f32, each moved once; the reference's five products (S = q k^T,
@@ -942,7 +1019,8 @@ def _flash_bwd_row(gen, launches, err):
     2 D operations a pair each, against the bf16 tensor-core peak. The
     library time is one ``torch.autograd.grad`` through
     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
-    on the same inputs in its (B, H, S, D) layout, timed alone."""
+    on the same inputs in its (B, H, S, D) layout, timed alone. ``ran``:
+    the device kernels of a launch at this shape (phase 2's profile)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -978,7 +1056,7 @@ def _flash_bwd_row(gen, launches, err):
         "plain_ms": cuda_ms(lambda: ops.flash_bwd_chunked(
             q, k, v, o, m, l, do, causal=causal), iters=3, warmup=1),
         "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-        "graph_ms": graph_ms(kernel, calls=5),
+        "graph_ms": graph_ms(kernel, calls=5), "kernels": ran,
     }
 
 
@@ -1051,12 +1129,14 @@ def _mlstm_row(gen, launches, err):
     }
 
 
-def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err):
+def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err,
+                bwd_ran):
     """One row per kernel at the main paths' shapes. ``launches`` are the
     counts of the starcoder2-3b serving run, ``rg_launches`` those of the
     recurrentgemma-9b run, ``xl_launches`` those of the xlstm-350m
     training run, ``sc_launches`` those of the starcoder2-3b training
-    run."""
+    run; ``bwd_ran`` the device kernels phase 2's profiled backward ran at
+    the training shape."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import quantize as quant
@@ -1114,7 +1194,7 @@ def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err):
                                gen, sc_launches["flash_attention"],
                                err["flash_attention_train"], stats=True))
     rows.append(_flash_bwd_row(gen, sc_launches["flash_attention_bwd"],
-                               err["flash_attention_bwd"]))
+                               err["flash_attention_bwd"], bwd_ran))
     return rows
 
 
@@ -1243,7 +1323,7 @@ def main():
     environment()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = check_kernels(gen)
+    err, bwd_ran = check_kernels(gen)
 
     # phase 3: slice 1's path, starcoder2-3b from a training-layout state
     from repro_torch.configs.base import get_config
@@ -1337,7 +1417,7 @@ def main():
         per_step={"flash_attention": LAYERS, "flash_attention_bwd": LAYERS})
 
     rows = kernel_line(gen, launches, rg_launches, xl_launches,
-                       sc_launches, err)
+                       sc_launches, err, bwd_ran)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ plain-jnp ``repro/kernels/ops.py::_flash_bwd``).
 Forward: bfloat16 inputs go to the tensor-core kernel (``mma.sync``, bf16
 products with f32 accumulation), float32 inputs to the f32 kernel on the
 CUDA cores (the reference's f32 tolerance rules out TF32). Either also
-writes the f32 row statistics (m, l) when asked. Backward: one kernel per
-dtype family on the CUDA cores in f32, deterministic (no atomics).
+writes the f32 row statistics (m, l) when asked. Backward, deterministic
+(no atomics): bfloat16 at head dims up to 128 on the tensor cores (P and
+dS split into two bf16 operands each), float32 and bfloat16 at head dim
+256 on the CUDA cores in f32.
 
 Gradient: a tensor that needs a gradient goes through ``_FlashFunction``,
 the counterpart of the reference's custom VJP: its forward launches the
@@ -64,7 +66,8 @@ def _bwd_kernel():
 def _check(what, q, k, v, *, like_q=(), stats=()):
     """Shapes, dtypes, head dim and contiguity of q (B, Sq, H, D), k / v
     (B, Sk, KV, D), the tensors ``like_q`` (q's shape and dtype) and the
-    f32 row statistics ``stats`` (B, Sq, H); then one CUDA device."""
+    f32 row statistics ``stats`` (B, Sq, H); bf16 q, k, v and ``like_q``
+    16-byte aligned; then one CUDA device."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     tensors = (q, k, v, *like_q)
@@ -83,6 +86,9 @@ def _check(what, q, k, v, *, like_q=(), stats=()):
                          f"{[tuple(t.shape) for t in (*like_q, *stats)]}")
     if not all(t.is_contiguous() for t in (*tensors, *stats)):
         raise ValueError(f"{what}: inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: bf16 inputs must start at 16-byte "
+                         f"aligned addresses (16-byte async copies)")
     if not all(t.is_cuda and t.device == q.device
                for t in (*tensors, *stats)):
         raise ValueError(f"{what}: inputs must be on one CUDA device")
@@ -138,10 +144,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     q's dtype; differentiable in q, k, v. ``return_stats`` (no gradient):
     (o, m, l) with the f32 row statistics m, l of shape (B, Sq, H)."""
     _check("flash_attention kernel", q, k, v)
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel: bf16 inputs must start at "
-                         "16-byte aligned addresses (16-byte async copies)")
     opts = dict(causal=causal, window=window, softcap=softcap,
                 q_offset=q_offset)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -160,7 +162,8 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal=True, window=0,
                         softcap=0.0, q_offset=0):
     """The backward kernel: (dq, dk, dv) in q's dtype from the forward's
     q, k, v, o, its f32 row statistics m, l (B, Sq, H) and the output
-    gradient ``do``; all contiguous on one CUDA device."""
+    gradient ``do``; all contiguous on one CUDA device (bf16: 16-byte
+    aligned)."""
     _check("flash_attention_bwd kernel", q, k, v, like_q=(o, do),
            stats=(m, l))
     b, sq, h, d = q.shape
