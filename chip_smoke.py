@@ -29,7 +29,12 @@ Phases; any failure exits non-zero:
      ran (the profiler's names), which must be the tensor-core ones for
      bf16 at head dims up to 128 and the CUDA-core ones for the rest; the
      stats-emitting forward's o bit for bit the stats-free one's and its
-     m, l within 1e-4 of the plain forward's.
+     m, l within 1e-4 of the plain forward's. Head dim 80 (h2o-danube-1.8b)
+     in f32 and bf16, forward and backward: a window edge inside a ragged
+     tile and a q offset with Sq < Sk at GQA 4 (32 heads / 8 kv), the h2o
+     prefill shape (4, 5120, 32, 8, 80, window 4096) and a training-like
+     backward (8, 2048, 32, 8, 80, window 4096); and the forward and backward
+     at deepseek-coder-33b's training shape (8, 2048, 56, 8, 128).
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -46,25 +51,36 @@ Phases; any failure exits non-zero:
   3c. the third path, the training restart of slice 3: full-width
      xlstm-350m (one repeat of its segment unit: 7 mLSTM + 1 sLSTM of 24
      layers, f32 params) trains through ``launch/train.py::train_loop`` on
-     batches of 8 x 2048 tokens, deterministic: run A takes 8 steps; run B
-     takes 4, checkpoints through the burst buffer unquantized, loses
+     batches of 8 x 2048 tokens, deterministic: run A takes 4 steps; run B
+     takes 2, checkpoints through the burst buffer unquantized, loses
      server/0, restores from the replicas into a state drawn from another
-     seed and takes 4 more. B's params and moments must equal A's bit for
-     bit. The step-8 state then goes through an int8-moment checkpoint:
+     seed and takes 2 more. B's params and moments must equal A's bit for
+     bit. The step-4 state then goes through an int8-moment checkpoint:
      params bit-exact, moments within the half-step bound. The mLSTM kernel
      runs in every forward (7 launches a step).
   3d. the fourth path, the training restart of slice 4: full-width
      starcoder2-3b (2 of 30 layers, bf16 params, f32 AdamW moments) through
-     the same restart as 3c at 8 x 2048 tokens a step; the flash forward
+     the same restart at 8 + 8 steps of 8 x 2048 tokens; the flash forward
      (with row statistics) and the flash backward kernel run once a layer
      in every step; besides them only quantize / dequantize run, for the
      int8 checkpoint.
+  3e. the fifth path, the training restart of slice 5: full-width
+     deepseek-coder-33b (2 of 62 layers, bf16 params, Adafactor with bf16
+     momentum and f32 factored second moments) through the same restart;
+     the flash forward and backward (head dim 128) run once a layer in
+     every step, quantize / dequantize once for each int8 leaf.
+  3f. the sixth path, the serving restart of slice 6: h2o-danube-1.8b at
+     full width and full depth (24 of 24 layers) from a params-only
+     checkpoint, 3 request batches of 4 prompts of 5120 tokens (past its
+     4096-token window); the flash forward at head dim 80 runs once a layer
+     in every prefill.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
      (serving), step time, tokens/s, save / flush / restore-after-kill and
-     int8 save / flush / restore seconds (training), a device profile; then a
-     JSON line with each kernel's launches, time, bound, plain-version time
-     and the time of one PyTorch library call for the same function.
+     int8 save / flush / restore seconds and the optimizer update's own
+     seconds (training), a device profile; then a JSON line with each
+     kernel's launches, time, bound, plain-version time and the time of one
+     PyTorch library call for the same function.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -153,7 +169,9 @@ def _rg_lru_cases(tile_s):
             for dtype in ("bfloat16", "float32")]
 
 # slice 3: xlstm-350m training, one repeat of its (mLSTM x 7, sLSTM) unit
-XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 8
+# 4 steps (2 + 2 around the kill): its sLSTM's host loop makes a step take
+# ~4 s, and the run stays near half its time limit
+XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 4
 XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
 XL_DRAM = 2 << 30                     # a server's DRAM (~2.0 GB checkpoint)
 # mLSTM forward: (shape (B, S, H, D), chunk, dtype, atol, rtol). The
@@ -207,10 +225,45 @@ BWD_EDGE_CASES = [
     (1, 160, 160, 8, 2, 128, True, 0, 30.0, 0, "bfloat16", D256_BF16_TOL),
     (1, 96, 130, 4, 2, 32, False, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
 ]
+
+# slice 5: deepseek-coder-33b training at full width, DS_LAYERS of its 62
+# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128
+DS_LAYERS = 2
+DS_BATCH, DS_SEQ, DS_STEPS = 8, 2048, 8
+DS_DRAM = 4 << 30     # ~3.05 GB a server: ~6.1 GB at replication 2 over 4
+DS_TRAIN_ATTN_CASE = (DS_BATCH, DS_SEQ, DS_SEQ, 56, 8, 128, True, 0, 0.0, 0,
+                      "bfloat16", D256_BF16_TOL)
+DS_TRAIN_FWD_CASE = DS_TRAIN_ATTN_CASE[:11] + (3e-2,)
+# slice 6: h2o-danube-1.8b serving at full width and depth, a prompt past
+# its 4096-token window; head dim 2560 / 32 = 80
+H2O_BATCH, H2O_PROMPT, H2O_GEN, H2O_REQUESTS = 4, 5120, 32, 3
+H2O_WINDOW, H2O_HEADS, H2O_KV, H2O_HEAD_DIM = 4096, 32, 8, 80
+H2O_DRAM = 4 << 30    # ~1.83 GB a server: ~3.66 GB at replication 2 over 4
+# head dim 80 in f32 (2e-5) and bf16 (the reference's 3e-2) at GQA 4: a
+# window of 40 whose edge falls inside the 64-key tiles of a ragged S, and
+# a q offset with Sq < Sk (the last 72 queries of 200 keys); the h2o
+# prefill shape in bf16 within one bf16 ulp (outputs there are ~0.02, a
+# 4096-key window, so 3e-2 would hold nothing; D256_BF16_TOL's argument)
+D80_CASES = [case for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2))
+             for case in (
+                 (1, 200, 200, H2O_HEADS, H2O_KV, H2O_HEAD_DIM, True, 40,
+                  0.0, 0, dtype, tol),
+                 (1, 72, 200, H2O_HEADS, H2O_KV, H2O_HEAD_DIM, True, 0,
+                  0.0, 128, dtype, tol))]
+H2O_PREFILL_CASE = (H2O_BATCH, H2O_PROMPT, H2O_PROMPT, H2O_HEADS, H2O_KV,
+                    H2O_HEAD_DIM, True, H2O_WINDOW, 0.0, 0, "bfloat16",
+                    D256_BF16_TOL)
+# the D = 80 backward at a training-like shape (h2o-danube trains nowhere on
+# the main paths; the shape is its layer's at 8 x 2048 tokens)
+H2O_TRAIN_ATTN_CASE = (8, 2048, 2048, H2O_HEADS, H2O_KV, H2O_HEAD_DIM, True,
+                       H2O_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
+# the training shapes, where two launches must be bit-identical
+TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE)
+
 BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
                           else D256_BF16_TOL,)
-             for case in ATTN_CASES + BF16_CASES + D256_CASES] \
-    + BWD_EDGE_CASES + [TRAIN_ATTN_CASE]
+             for case in ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES] \
+    + BWD_EDGE_CASES + list(TRAIN_SHAPES)
 
 
 def bwd_kernels(case):
@@ -460,19 +513,19 @@ def check_flash_bwd():
     """The flash backward kernel against its plain version on every case of
     BWD_CASES, fed the same q, k, v, dO and the forward kernel's o, m, l;
     the stats-emitting forward against the stats-free one (o bit for bit)
-    and its m, l against the plain forward's; at the training shape two
-    launches bit-identical, and autograd through the kernel's Function
-    equal to the backward kernel on the saved tensors. Returns the max
-    error at the training shape and the device kernels it ran there. The
-    inputs come from a generator of their own, so these cases do not move
-    the other kernels' inputs."""
+    and its m, l against the plain forward's; at each training shape
+    (TRAIN_SHAPES) two launches bit-identical, and at slice 4's autograd
+    through the kernel's Function equal to the backward kernel on the saved
+    tensors. Returns {training shape: (max error, the device kernels it
+    ran)}. The inputs come from a generator of their own, so these cases do
+    not move the other kernels' inputs."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
-    err, train_ran = 0.0, []
+    results = {}
     for case in BWD_CASES:
         *_, causal, window, cap, q_offset, dtype, tol = case
         opts = dict(causal=causal, window=window, softcap=cap,
@@ -498,8 +551,8 @@ def check_flash_bwd():
         e = max(_within(f"{tag} {name}", g, pg, tol)
                 for name, g, pg in zip(("dq", "dk", "dv"), grads, plain))
         del plain, pm, pl, o_free
-        if case == TRAIN_ATTN_CASE:
-            err, train_ran = e, ran
+        if case in TRAIN_SHAPES:
+            results[case] = (e, ran)
             again = fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts)
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -507,6 +560,7 @@ def check_flash_bwd():
                   flush=True)
             check(same, f"flash_bwd {case}: two launches differ")
             del again
+        if case == TRAIN_ATTN_CASE:
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
             out = fa.flash_attention(*leaves, **opts)
             auto = torch.autograd.grad(out, leaves, do)
@@ -519,7 +573,7 @@ def check_flash_bwd():
                   f"differs from the kernels")
             del leaves, out, auto
         del q, k, v, do, o, m, l, grads
-    return err, train_ran
+    return results
 
 
 def _mlstm_inputs(case, gen):
@@ -539,7 +593,7 @@ def _mlstm_inputs(case, gen):
 def check_kernels(gen):
     """Each kernel against its plain version on the same card inputs.
     Returns the max error at the main paths' shapes, by kernel row, and the
-    device kernels the flash backward ran at the training shape."""
+    device kernels the flash backward ran at each training shape, by row."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import flash_attention as fa
@@ -547,8 +601,12 @@ def check_kernels(gen):
     from repro_torch.kernels import quantize as quant
 
     err = {}
-    for case in (ATTN_CASES + BF16_CASES + D256_CASES
-                 + [PREFILL_CASE, RG_PREFILL_CASE, TRAIN_FWD_CASE]):
+    rows = {PREFILL_CASE: "flash_attention",
+            RG_PREFILL_CASE: "flash_attention_d256",
+            TRAIN_FWD_CASE: "flash_attention_train",
+            DS_TRAIN_FWD_CASE: "flash_attention_train_dsc",
+            H2O_PREFILL_CASE: "flash_attention_d80"}
+    for case in ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES + list(rows):
         *_, causal, window, cap, q_offset, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -558,15 +616,16 @@ def check_kernels(gen):
         torch.cuda.synchronize()
         # elementwise, as the reference's kernel tests hold it
         e = _within(f"[flash] {case[:-1]}", out, plain, tol)
-        if case == PREFILL_CASE:
-            err["flash_attention"] = e
-        if case == RG_PREFILL_CASE:
-            err["flash_attention_d256"] = e
-        if case == TRAIN_FWD_CASE:
-            err["flash_attention_train"] = e
+        if case in rows:
+            err[rows[case]] = e
         del q, k, v, out, plain
 
-    err["flash_attention_bwd"], bwd_ran = check_flash_bwd()
+    results, bwd_ran = check_flash_bwd(), {}
+    for case, name in ((TRAIN_ATTN_CASE, "flash_attention_bwd"),
+                       (DS_TRAIN_ATTN_CASE, "flash_attention_bwd_dsc"),
+                       (H2O_TRAIN_ATTN_CASE, "flash_attention_bwd_d80")):
+        err[name], bwd_ran[name] = results[case]
+
     err["rg_lru"] = check_rg_lru()
 
     for case in MLSTM_CASES:
@@ -732,7 +791,7 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         check(a.shape == (batch, gen_tokens), f"request {r}: {a.shape}")
         check(torch.equal(a, b), f"request {r}: restored params served "
               f"other tokens")
-    moments = (f", moments within {worst:.3f} of the half-step bound"
+    moments = (f", moments within {worst:.3f} of their int8 bound"
                if train_state else "")
     print(f"[main] {n_leaves} leaves ({n_quant} int8), {t['ckpt_bytes']} "
           f"checkpoint bytes; params bit-exact{moments}, {requests} x "
@@ -743,34 +802,50 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
 
 def compare_restored(state, restored):
     """Every leaf of ``restored`` against the saved ``state``: same device,
-    dtype and shape; AdamW moments within half an int8 step of their
-    block's scale (the step is max|x| / 127, floored at 1e-12 as the
-    quantizer floors it; with f32 slack), everything else bit for bit.
-    Returns (leaves, int8 leaves, worst moment error as a share of its
-    bound)."""
+    dtype and shape; the leaves the serializer's quant policy sends through
+    int8 within their bound, everything else bit for bit. Returns (leaves,
+    int8 leaves, worst int8 error as a share of its bound)."""
     import torch
     from repro_torch.checkpoint import serializer as ser
     src = dict(ser.tree_paths(state))
     got = dict(ser.tree_paths(restored))
     check(list(got) == list(src), "restored tree has other leaves")
-    worst = 0.0
+    worst, n_quant = 0.0, 0
     for name, leaf in src.items():
         out = got[name]
         check(out.device == leaf.device and out.dtype == leaf.dtype
               and out.shape == leaf.shape, f"{name}: restored as {out.dtype}"
               f" {tuple(out.shape)} on {out.device}")
-        if name.startswith("opt_state/.m/") or name.startswith(
-                "opt_state/.v/"):
-            err = (out - leaf).abs().max().item()
-            lim = max(leaf.abs().max().item() / 127, 1e-12) / 2 \
-                * (1 + 1e-4)
-            check(err <= lim, f"{name}: moment error {err} > {lim}")
-            worst = max(worst, err / max(lim, 1e-30))
-        else:
+        if not ser.default_quant_policy(name, leaf):
             check(torch.equal(out, leaf), f"{name}: not bit-exact")
-    n_quant = sum(ser.default_quant_policy(n, leaf) for n, leaf in
-                  src.items())
+            continue
+        n_quant += 1
+        err = (out.float() - leaf.float()).reshape(-1).abs()
+        share = (err / _int8_bound(leaf)).max().item()
+        check(share <= 1.0, f"{name}: int8 error {share:.3f} of its bound")
+        worst = max(worst, share)
     return len(src), n_quant, worst
+
+
+def _int8_bound(leaf):
+    """The elementwise bound on an int8 round trip of ``leaf`` (flat, f32):
+    half an int8 step of its 2048-element block, the step max|x| / 127
+    floored at 1e-12 as the quantizer floors it, with 1e-4 of f32 slack
+    (x / scale and q * scale each round once in f32). A bf16 leaf goes f32
+    -> int8 -> f32 -> bf16, so one more bf16 rounding, at most 2^-8 of the
+    dequantized value |x| + step / 2, is added to its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.checkpoint import serializer as ser
+    x = leaf.float().reshape(-1)
+    n = x.numel()
+    block = F.pad(x.abs(), (0, (-n) % ser.QUANT_BLOCK)).view(
+        -1, ser.QUANT_BLOCK).amax(dim=1)
+    half = (block / 127).clamp_min(1e-12).repeat_interleave(
+        ser.QUANT_BLOCK)[:n] / 2 * (1 + 1e-4)
+    if leaf.dtype == torch.bfloat16:
+        half = half + 2.0 ** -8 * (x.abs() + half)
+    return half
 
 
 def _kernels():
@@ -814,9 +889,10 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
     state_a, hist_a, _ = train_loop(cfg, steps=steps, ckpt_every=0,
                                     seed=SEED, **kw)
     with BurstBufferSystem(bbcfg) as bb:
-        _, hist_b, mgr = train_loop(cfg, steps=half, ckpt_every=half - 1,
-                                    bb_system=bb, quantize_ckpt=False,
-                                    seed=SEED, **kw)
+        saved_b, hist_b, mgr = train_loop(cfg, steps=half,
+                                          ckpt_every=half - 1, bb_system=bb,
+                                          quantize_ckpt=False, seed=SEED,
+                                          **kw)
         t["save_s"] = mgr.metrics[half - 1]["ingest_s"]
         t["ckpt_bytes"] = mgr.metrics[half - 1]["bytes"]
         t["flush_s"] = mgr.metrics[half - 1].get("flush_s")
@@ -827,6 +903,9 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
                                            bb_system=bb, restore=True,
                                            seed=SEED + 1, **kw)
         t["restore_s"] = mgr.metrics[half - 1].get("restore_s")
+        if hist_b + hist_b2 != hist_a:
+            _diagnose_restore(mgr, half - 1, saved_b)
+        del saved_b
     check(t["restore_s"] is not None and [s for s, _ in hist_b2]
           == list(range(half, steps)), f"run B did not resume at step "
           f"{half}: {hist_b2}")
@@ -842,7 +921,8 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
               f"from the uninterrupted run A")
     print(f"[main] losses {[round(l, 4) for _, l in hist_a]}; run B (kill, "
           f"restore at step {half}) equals run A bit for bit in all "
-          f"{len(a_leaves)} leaves of params and AdamW state", flush=True)
+          f"{len(a_leaves)} leaves of params and optimizer state",
+          flush=True)
     del state_b, b_leaves
 
     # the step-``steps`` state through an int8-moment checkpoint
@@ -866,10 +946,44 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
     check(step == steps, f"restored step {step} != {steps}")
     n_leaves, n_quant, worst = compare_restored(state, restored)
     print(f"[main] int8 checkpoint of the step-{steps} state: {n_leaves} "
-          f"leaves ({n_quant} int8, real AdamW moments), {t['qckpt_bytes']} "
-          f"bytes; params bit-exact, moments within {worst:.3f} of the "
-          f"half-step bound", flush=True)
+          f"leaves ({n_quant} int8, real optimizer moments), "
+          f"{t['qckpt_bytes']} bytes; params bit-exact, int8 leaves within "
+          f"{worst:.3f} of their bound", flush=True)
     return t, launches, n_quant
+
+
+def _diagnose_restore(mgr, step, saved):
+    """After a resume that diverged: restore the step's checkpoint once
+    more, from the same burst buffer, and print which leaves differ from
+    the state that was saved (none: the buffer gave the state back, and
+    the divergence came after the restore)."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.models.common import map_tree
+    target = {"params": map_tree(torch.zeros_like, saved.params),
+              "opt_state": map_tree(torch.zeros_like, saved.opt_state),
+              "data": {"step": torch.zeros((), dtype=torch.int32,
+                                           device=saved.opt_state.step.device)}}
+    restored, _ = mgr.restore(target, step)
+    got = dict(ser.tree_paths({"params": restored["params"],
+                               "opt_state": restored["opt_state"]}))
+    bad = [name for name, leaf in ser.tree_paths(
+        {"params": saved.params, "opt_state": saved.opt_state})
+        if not torch.equal(leaf, got[name])]
+    print(f"[diag] a second restore of the step-{step} checkpoint: "
+          f"{len(bad)} leaves differ from the saved state {bad[:8]}; data "
+          f"step {int(restored['data']['step'])}", flush=True)
+
+
+def host_memory(what: str):
+    """Collect garbage (the burst buffer's threads and stores form
+    reference cycles) and print this process's resident host memory."""
+    import gc
+    gc.collect()
+    rss = next((line.split(":", 1)[1].strip()
+                for line in open("/proc/self/status")
+                if line.startswith("VmRSS")), "not measured")
+    print(f"[host] after {what}: resident memory {rss}", flush=True)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1011,50 +1125,56 @@ def _flash_row(name, case, gen, launches, err, stats=False):
     }
 
 
-def _flash_bwd_row(gen, launches, err, ran):
-    """The backward kernel, its plain version and SDPA's backward at the
-    training shape. The bound: q, o, dO and dq, k, v, dk and dv in bf16 and
-    m, l in f32, each moved once; the reference's five products (S = q k^T,
-    dP = dO v^T, dv, dq, dk) over the (q, k) pairs the causal mask leaves,
-    2 D operations a pair each, against the bf16 tensor-core peak. The
-    library time is one ``torch.autograd.grad`` through
-    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
-    on the same inputs in its (B, H, S, D) layout, timed alone. ``ran``:
-    the device kernels of a launch at this shape (phase 2's profile)."""
+def _flash_bwd_row(name, case, gen, launches, err, ran):
+    """The backward kernel, its plain version and SDPA's backward at a
+    training shape ``case``. The bound: q, o, dO and dq, k, v, dk and dv in
+    bf16 and m, l in f32, each moved once; the reference's five products
+    (S = q k^T, dP = dO v^T, dv, dq, dk) over the (q, k) pairs the causal
+    and window masks leave, 2 D operations a pair each, against the bf16
+    tensor-core peak. The library time is one ``torch.autograd.grad``
+    through ``scaled_dot_product_attention(..., enable_gqa=True)`` (causal,
+    or a boolean mask for a window shorter than S) on the same inputs in its
+    (B, H, S, D) layout, timed alone. ``ran``: the device kernels of a
+    launch at this shape (phase 2's profile)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
 
-    case = TRAIN_ATTN_CASE
-    d, causal = case[5], case[6]
+    s, d, causal, window = case[1], case[5], case[6], case[7]
     q, k, v = _attn_inputs(case, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     with torch.no_grad():
-        o, m, l = fa.flash_attention(q, k, v, causal=causal,
+        o, m, l = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      return_stats=True)
     nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * 2 * m.numel()
     bms, by = bound(nbytes, 5 * 2 * d * _causal_pairs(case), BF16_FLOPS)
     kernel = lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do,
-                                            causal=causal)
+                                            causal=causal, window=window)
     qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
                   for a in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
+    mask = {"is_causal": True}
+    if window and window < s:
+        pos = torch.arange(s, device="cuda")
+        mask = {"attn_mask": (pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window)}
     with torch.enable_grad():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **mask)
         library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                               retain_graph=True)
         library_ms = cuda_ms(library, iters=5, warmup=2)
     return {
-        "name": "flash_attention_bwd", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         # no Pallas counterpart: the reference's backward is plain jnp
         "replaces": "src/repro/kernels/ops.py:65",
         "launches": launches, "max_abs_err": err,
         "ms": cuda_ms(kernel, iters=5, warmup=1),
         "plain_ms": cuda_ms(lambda: ops.flash_bwd_chunked(
-            q, k, v, o, m, l, do, causal=causal), iters=3, warmup=1),
+            q, k, v, o, m, l, do, causal=causal, window=window), iters=3,
+            warmup=1),
         "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
         "graph_ms": graph_ms(kernel, calls=5), "kernels": ran,
     }
@@ -1129,24 +1249,24 @@ def _mlstm_row(gen, launches, err):
     }
 
 
-def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err,
-                bwd_ran):
-    """One row per kernel at the main paths' shapes. ``launches`` are the
-    counts of the starcoder2-3b serving run, ``rg_launches`` those of the
-    recurrentgemma-9b run, ``xl_launches`` those of the xlstm-350m
-    training run, ``sc_launches`` those of the starcoder2-3b training
-    run; ``bwd_ran`` the device kernels phase 2's profiled backward ran at
-    the training shape."""
+def kernel_line(gen, launches, err, bwd_ran):
+    """One row per kernel at the main paths' shapes. ``launches``: the
+    kernel counts of each path's run, by config name (starcoder2-3b's
+    serving and training runs as "starcoder2-3b" and "starcoder2-3b
+    train"); ``bwd_ran``: the device kernels phase 2's profiled backward
+    ran at each training shape, by row name."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import quantize as quant
 
+    sc, rg = launches["starcoder2-3b"], launches["recurrentgemma-9b"]
+    xl, sct = launches["xlstm-350m"], launches["starcoder2-3b train"]
+    ds, h2o = launches["deepseek-coder-33b"], launches["h2o-danube-1.8b"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
-                           launches["flash_attention"],
-                           err["flash_attention"]),
+                           sc["flash_attention"], err["flash_attention"]),
                 _flash_row("flash_attention_d256", RG_PREFILL_CASE, gen,
-                           rg_launches["flash_attention"],
+                           rg["flash_attention"],
                            err["flash_attention_d256"])]
         ms, plain_ms, bms, by, gms = _rg_lru_time(RG_LRU_PREFILL, gen)
         dms, dplain_ms, dbms, dby, _ = _rg_lru_time(RG_LRU_DECODE, gen)
@@ -1154,7 +1274,7 @@ def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err,
             "name": "rg_lru", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
             "replaces": "src/repro/kernels/rg_lru.py:48",
-            "launches": rg_launches["rg_lru"], "max_abs_err": err["rg_lru"],
+            "launches": rg["rg_lru"], "max_abs_err": err["rg_lru"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "graph_ms": gms,
             # the same at the decode shape (B, 1, D), launched once a layer
@@ -1170,7 +1290,7 @@ def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err,
             "name": "quantize_blockwise", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": "src/repro/kernels/quantize.py:32",
-            "launches": launches["quantize_blockwise"],
+            "launches": sc["quantize_blockwise"],
             "max_abs_err": err["quantize_blockwise"],
             "ms": cuda_ms(lambda: quant.quantize_blockwise(x)),
             "plain_ms": cuda_ms(lambda: ref.quantize_blockwise(x)),
@@ -1182,19 +1302,34 @@ def kernel_line(gen, launches, rg_launches, xl_launches, sc_launches, err,
             "name": "dequantize_blockwise", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": "src/repro/kernels/quantize.py:56",
-            "launches": launches["dequantize_blockwise"],
+            "launches": sc["dequantize_blockwise"],
             "max_abs_err": err["dequantize_blockwise"],
             "ms": cuda_ms(lambda: quant.dequantize_blockwise(qx, sx)),
             "plain_ms": cuda_ms(lambda: ref.dequantize_blockwise(qx, sx)),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
-        rows.append(_mlstm_row(gen, xl_launches["mlstm"], err["mlstm"]))
-        # slice 4: the training path's forward (with row statistics)
+        rows.append(_mlstm_row(gen, xl["mlstm"], err["mlstm"]))
+        # slices 4 and 5: the training paths' forward (with row statistics)
         rows.append(_flash_row("flash_attention_train", TRAIN_ATTN_CASE,
-                               gen, sc_launches["flash_attention"],
+                               gen, sct["flash_attention"],
                                err["flash_attention_train"], stats=True))
-    rows.append(_flash_bwd_row(gen, sc_launches["flash_attention_bwd"],
-                               err["flash_attention_bwd"], bwd_ran))
+        rows.append(_flash_row("flash_attention_train_dsc",
+                               DS_TRAIN_ATTN_CASE, gen,
+                               ds["flash_attention"],
+                               err["flash_attention_train_dsc"], stats=True))
+        # slice 6: the D = 80 prefill of h2o-danube's 4096-token window
+        rows.append(_flash_row("flash_attention_d80", H2O_PREFILL_CASE, gen,
+                               h2o["flash_attention"],
+                               err["flash_attention_d80"]))
+    # the backward at the training shapes; no main path trains h2o-danube,
+    # so its D = 80 row has no launches there
+    for name, case, runs in (
+            ("flash_attention_bwd", TRAIN_ATTN_CASE, sct),
+            ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds),
+            ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o)):
+        rows.append(_flash_bwd_row(name, case, gen,
+                                   runs["flash_attention_bwd"], err[name],
+                                   bwd_ran[name]))
     return rows
 
 
@@ -1220,17 +1355,19 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
               f"{want})", flush=True)
         check(all(launches[name] > 0 for name in per_step)
               and launches == want, f"launch counts {launches} != {want}")
-        step_s, tok_s, peak_gb, layer_s = time_training(cfg, device, batch,
-                                                        seq)
+        step_s, tok_s, peak_gb, layer_s, update_s = time_training(
+            cfg, device, batch, seq)
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"[numbers] {cfg.name}: step {step_s:.3f}s ({tok_s:.1f} tok/s, "
-          f"B={batch}, S={seq}), peak device memory {peak_gb:.2f} GB",
-          flush=True)
+          f"B={batch}, S={seq}), peak device memory {peak_gb:.2f} GB, "
+          f"optimizer update {update_s:.4f}s", flush=True)
     print(f"[numbers] {cfg.name}: save {t['save_s']:.3f}s (ingest of "
-          f"{t['ckpt_bytes'] / 1e9:.3f} GB, unquantized), flush "
-          f"{t['flush_s']}s (off the critical path), restore after the "
-          f"kill {t['restore_s']:.3f}s", flush=True)
+          f"{t['ckpt_bytes']} bytes = {t['ckpt_bytes'] / 1e9:.3f} GB, "
+          f"unquantized; {2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server "
+          f"at replication 2 over 4 servers of {dram_capacity / 2**30:.0f} "
+          f"GiB), flush {t['flush_s']}s (off the critical path), restore "
+          f"after the kill {t['restore_s']:.3f}s", flush=True)
     print(f"[numbers] {cfg.name}: int8 save {t['qsave_s']:.3f}s "
           f"({t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), int8 "
           f"flush {t['qflush_s']}s, int8 restore {t['qrestore_s']:.3f}s",
@@ -1248,13 +1385,15 @@ def _layers(cfg, kind):
 def time_training(cfg, device, batch, seq):
     """Step time, tokens/s and peak device memory of the train step at the
     path's shape (three steps after a warm-up one, deterministic as on the
-    path), one profiled step, and one forward and backward of each layer
-    kind of the config."""
+    path), one profiled step, one forward and backward of each layer kind
+    of the config, and the optimizer update's own seconds (host clock
+    around ``synchronize``, after a warm-up update; the params stand in for
+    the gradients)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.train import batch_to, build
 
-    _, _, state, step_fn = build(cfg, seed=SEED, device=device)
+    _, optimizer, state, step_fn = build(cfg, seed=SEED, device=device)
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
                                global_batch=batch)
     batches = [batch_to(next(pipe), device) for _ in range(4)]
@@ -1272,7 +1411,14 @@ def time_training(cfg, device, batch, seq):
     kinds = sorted({k for unit, _ in cfg.segments for k in unit})
     layer_s = {kind: _layer_seconds(cfg, state.params, kind, device, batch,
                                     seq) for kind in kinds}
-    return step_s, batch * seq / step_s, peak_gb, layer_s
+    with torch.no_grad():
+        optimizer.update(state.params, state.opt_state, state.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.update(state.params, state.opt_state, state.params)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+    return step_s, batch * seq / step_s, peak_gb, layer_s, update_s
 
 
 def _layer_seconds(cfg, params, kind, device, batch, seq, reps=2):
@@ -1345,6 +1491,7 @@ def main():
     check(launches == want, f"launch counts {launches} != {want}")
     serving_numbers(cfg, t, model, params, prompts, GEN)
     del model, params, prompts
+    host_memory("phase 3")
 
     # phase 3b: slice 2's path, recurrentgemma-9b from a params-only
     # checkpoint; depth cut as the reference's reduced() cuts it
@@ -1378,6 +1525,7 @@ def main():
           f"{rg_want}")
     serving_numbers(rg_cfg, rg_t, rg_model, rg_params, rg_prompts, RG_GEN)
     del rg_model, rg_params, rg_prompts
+    host_memory("phase 3b")
 
     # phase 3c: slice 3's path, xlstm-350m training through a server kill;
     # depth cut as the reference's reduced() cuts it
@@ -1398,6 +1546,7 @@ def main():
     xl_launches = training_path(
         xl_cfg, device, batch=XL_BATCH, seq=XL_SEQ, steps=XL_STEPS,
         dram_capacity=XL_DRAM, per_step={"mlstm": _layers(xl_cfg, "mlstm")})
+    host_memory("phase 3c")
 
     # phase 3d: slice 4's path, starcoder2-3b training through a server
     # kill; depth cut to LAYERS as in phase 3
@@ -1415,9 +1564,72 @@ def main():
         cfg, device, batch=SC_BATCH, seq=SC_SEQ, steps=SC_STEPS,
         dram_capacity=SC_DRAM,
         per_step={"flash_attention": LAYERS, "flash_attention_bwd": LAYERS})
+    host_memory("phase 3d")
 
-    rows = kernel_line(gen, launches, rg_launches, xl_launches,
-                       sc_launches, err, bwd_ran)
+    # phase 3e: slice 5's path, deepseek-coder-33b training (Adafactor)
+    # through a server kill; depth cut to DS_LAYERS
+    full = get_config("deepseek-coder-33b")
+    ds_cfg = dataclasses.replace(full, segments=((("attn",), DS_LAYERS),))
+    check(ds_cfg.optimizer == "adafactor" and ds_cfg.resolved_head_dim
+          == DS_TRAIN_ATTN_CASE[5] and (ds_cfg.num_heads, ds_cfg.num_kv_heads)
+          == DS_TRAIN_ATTN_CASE[3:5], "deepseek-coder-33b shapes")
+    n = ds_cfg.param_count()
+    print(f"[main] {ds_cfg.name} training, full width (d_model "
+          f"{ds_cfg.d_model}, {ds_cfg.num_heads} heads / "
+          f"{ds_cfg.num_kv_heads} kv, head_dim {ds_cfg.resolved_head_dim}, "
+          f"d_ff {ds_cfg.d_ff}, vocab {ds_cfg.vocab_size}, params "
+          f"{ds_cfg.param_dtype}, compute {ds_cfg.compute_dtype}, grad "
+          f"accumulation {ds_cfg.grad_accum_dtype}), Adafactor (momentum "
+          f"0.9 in bf16, factored f32 second moments); reduced: num_layers "
+          f"{full.num_layers} -> {DS_LAYERS}; {n} params; batch {DS_BATCH} x "
+          f"{DS_SEQ} tokens, {DS_STEPS} steps; unquantized checkpoint about "
+          f"{4 * n / 1e9:.2f} GB (bf16 params and m) and the second "
+          f"moments, over 4 servers of {DS_DRAM / 2**30:.0f} GiB DRAM",
+          flush=True)
+    ds_launches = training_path(
+        ds_cfg, device, batch=DS_BATCH, seq=DS_SEQ, steps=DS_STEPS,
+        dram_capacity=DS_DRAM,
+        per_step={"flash_attention": DS_LAYERS,
+                  "flash_attention_bwd": DS_LAYERS})
+    host_memory("phase 3e")
+
+    # phase 3f: slice 6's path, h2o-danube-1.8b at full width and depth
+    # from a params-only checkpoint, prompts past its window
+    h2o_cfg = get_config("h2o-danube-1.8b")
+    check(h2o_cfg.resolved_head_dim == H2O_HEAD_DIM
+          and h2o_cfg.window_size == H2O_WINDOW
+          and (h2o_cfg.num_heads, h2o_cfg.num_kv_heads)
+          == (H2O_HEADS, H2O_KV), "h2o-danube-1.8b shapes")
+    print(f"[main] {h2o_cfg.name} full width and depth (d_model "
+          f"{h2o_cfg.d_model}, {h2o_cfg.num_heads} heads / "
+          f"{h2o_cfg.num_kv_heads} kv, head_dim {h2o_cfg.resolved_head_dim}, "
+          f"d_ff {h2o_cfg.d_ff}, window {h2o_cfg.window_size}, vocab "
+          f"{h2o_cfg.vocab_size}, {h2o_cfg.num_layers} layers, "
+          f"{h2o_cfg.param_dtype}); {h2o_cfg.param_count()} params; prompt "
+          f"{H2O_PROMPT} past the window", flush=True)
+    h2o_t, h2o_launches, (h2o_model, h2o_params, h2o_prompts, h2o_quant) = \
+        serving_restart(h2o_cfg, device, batch=H2O_BATCH, prompt=H2O_PROMPT,
+                        gen_tokens=H2O_GEN, requests=H2O_REQUESTS,
+                        dram_capacity=H2O_DRAM, train_state=False)
+    h2o_want = {"flash_attention": _layers(h2o_cfg, "attn_local")
+                * H2O_REQUESTS, "flash_attention_bwd": 0, "rg_lru": 0,
+                "mlstm": 0, "quantize_blockwise": h2o_quant,
+                "dequantize_blockwise": h2o_quant}
+    print(f"[main] launches in save -> restore -> serve: {h2o_launches} "
+          f"(expected {h2o_want})", flush=True)
+    check(h2o_launches == h2o_want and h2o_launches["flash_attention"] > 0,
+          f"launch counts {h2o_launches} != {h2o_want}")
+    serving_numbers(h2o_cfg, h2o_t, h2o_model, h2o_params, h2o_prompts,
+                    H2O_GEN)
+    del h2o_model, h2o_params, h2o_prompts
+    host_memory("phase 3f")
+
+    rows = kernel_line(gen, {"starcoder2-3b": launches,
+                             "recurrentgemma-9b": rg_launches,
+                             "xlstm-350m": xl_launches,
+                             "starcoder2-3b train": sc_launches,
+                             "deepseek-coder-33b": ds_launches,
+                             "h2o-danube-1.8b": h2o_launches}, err, bwd_ran)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,7 +98,12 @@ class BBCheckpointManager:
             f = fs.open(fname, "w", policy=mode,
                         chunk_bytes=self.chunk_bytes, lane="checkpoint")
             for name, data in payloads.items():
-                f.pwrite(data, offset_of[name])
+                # an empty payload (Adafactor's zero-size sentinels) writes
+                # nothing: a zero-length pwrite still puts an empty chunk
+                # under the key of the chunk at its offset, which is the
+                # next leaf's first chunk (pread of 0 bytes reads nothing)
+                if data:
+                    f.pwrite(data, offset_of[name])
             mf = fs.open(f"{fname}.manifest", "w", policy=mode,
                          lane="checkpoint")
             mf.write(ser.manifest_bytes(manifest))

@@ -11,12 +11,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.optim.adafactor import AdafactorState
 from repro_torch.optim.adamw import AdamWState
 
 # the port's counterpart of each NamedTuple the reference's checkpoints
-# hold: a JAX train_loop checkpoint is {"params", "opt_state": AdamWState,
-# "data"}
-_NAMEDTUPLES = {"AdamWState": AdamWState}
+# hold: a JAX train_loop checkpoint is {"params", "opt_state": AdamWState
+# or AdafactorState, "data"}; the fields (and so the leaf paths) in the
+# reference's order
+_NAMEDTUPLES = {"AdamWState": AdamWState, "AdafactorState": AdafactorState}
 
 
 def _tensor(a, device, dtype):

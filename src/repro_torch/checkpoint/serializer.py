@@ -46,19 +46,21 @@ def _children(tree) -> Optional[List[Tuple[str, Any]]]:
 def tree_paths(tree) -> List[Tuple[str, Any]]:
     """[(path, leaf)] in JAX's flatten order; ``None`` is an empty subtree."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(t, prefix):
-        if t is None:
-            return
-        kids = _children(t)
-        if kids is None:
-            out.append(("/".join(prefix), t))
-            return
-        for key, child in kids:
-            walk(child, prefix + [key])
-
-    walk(tree, [])
+    _collect_paths(tree, [], out)
     return out
+
+
+def _collect_paths(t, prefix, out):
+    # module-level recursion: a closure that calls itself would keep ``out``
+    # (every leaf of the tree) alive until the garbage collector runs
+    if t is None:
+        return
+    kids = _children(t)
+    if kids is None:
+        out.append(("/".join(prefix), t))
+        return
+    for key, child in kids:
+        _collect_paths(child, prefix + [key], out)
 
 
 def tree_map_with_path(fn, tree, prefix=()):
@@ -90,6 +92,8 @@ def default_quant_policy(path: str, leaf) -> bool:
 
 
 def _host_bytes(t: torch.Tensor) -> bytes:
+    if not t.numel():      # a zero-size leaf (Adafactor's (0,) sentinels)
+        return b""
     return t.detach().contiguous().reshape(-1).view(torch.uint8) \
         .cpu().numpy().tobytes()
 
@@ -122,10 +126,18 @@ def serialize_leaf(leaf: torch.Tensor, quantize: bool) -> Tuple[bytes, dict]:
 
 
 def deserialize_leaf(payload: bytes, meta: dict, device="cpu"):
-    """A tensor on ``device`` in the saved shape and dtype."""
+    """A tensor on ``device`` in the saved shape and dtype. Raises on a
+    payload of another length than the metadata implies (a short read
+    must not come back as whatever memory an empty tensor holds)."""
     shape = tuple(meta["shape"])
     dtype = getattr(torch, meta["dtype"])
-    if not payload:
+    want = (meta["nq"] + 4 * (meta["nq"] // meta["block"]) if meta["quant"]
+            else math.prod(shape) * dtype.itemsize)
+    if len(payload) != want:
+        raise ValueError(f"{meta.get('name', 'leaf')}: payload of "
+                         f"{len(payload)} bytes, {want} expected for "
+                         f"{meta['dtype']} {list(shape)}")
+    if not payload:         # a zero-size leaf
         return torch.empty(shape, dtype=dtype, device=device)
     raw = _device_bytes(payload, device)
     if not meta["quant"]:

@@ -129,7 +129,7 @@ def _load_all():
     # import every config module once so @register side effects run
     import importlib
     for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b",
-                "xlstm_350m"):
+                "xlstm_350m", "deepseek_coder_33b", "h2o_danube_1_8b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -72,7 +72,10 @@
 //               2 blocks (8 warps) an SM; accumulator 128 f32 a thread, S
 //               16, and Q fragments reloaded from shared memory at every k
 //               step instead of held (they would take 64 more registers).
-//      D = 16 .. 64: BK = 64, 15,360 to 46,080 bytes, 2 blocks an SM.
+//      D = 16 .. 80: BK = 64, 15,360 to 56,320 bytes, 2 blocks an SM
+//               (D = 80, h2o-danube-1.8b's head dim: rows of 88 bf16, 11
+//               16-byte units, and 5 k steps of S = Q K^T, odd as at
+//               D = 48; accumulator 40 f32 a thread, S 32).
 //    Registers and spills per instance: `[ptxas flash_attention]` in
 //    chip_smoke.py's output (PERF.md keeps them). At D = 128, BK = 32 with
 //    3 blocks an SM beat BK = 64 with 2 on the card: S = 512 gives short
@@ -644,6 +647,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
     FLASH_CASE(32)
     FLASH_CASE(48)
     FLASH_CASE(64)
+    FLASH_CASE(80)
     FLASH_CASE(128)
     FLASH_CASE(256)
     default:

@@ -27,8 +27,9 @@
 // Outputs are rounded once to the input type, as the reference casts them.
 //
 // Which kernels take what, chosen in the C entry point:
-//  * bfloat16 at D in {16, 32, 48, 64, 128} (every training path; the
-//    starcoder2-3b shape is D = 128): flash_bwd_mma_dkdv_kernel<D> and
+//  * bfloat16 at D in {16, 32, 48, 64, 80, 128} (every training path; the
+//    starcoder2-3b and deepseek-coder-33b shapes are D = 128, h2o-danube-
+//    1.8b's D = 80): flash_bwd_mma_dkdv_kernel<D> and
 //    flash_bwd_mma_dq_kernel<D>, every tile product on the tensor cores
 //    (mma.sync m16n8k16, bf16 in, f32 accumulate), below.
 //  * float32 at every D, and bfloat16 at D = 256: flash_bwd_dkdv_kernel<D,
@@ -98,8 +99,13 @@
 //    same order): all 64 at once spilled, 32-row steps were 2% slower.
 //    dq uses 32-key tiles: Q and dO 2 x 64 x 272, the (K, V) ring 2 x 2 x
 //    32 x 272: 69,632 bytes, 3 blocks an SM (registers capped at 168; 2
-//    blocks, or 64-key tiles, were 18% slower). At D <= 64 both use 64-row
-//    steps and 64-key tiles, scores 64 queries at a time, 2 blocks an SM.
+//    blocks, or 64-key tiles, were 18% slower). At D <= 80 dk / dv forms
+//    the scores of a whole 64-row step at once (D = 80: 244 registers, no
+//    spill, 9% faster than 16 queries at a time), 2 blocks an SM; dq at
+//    D = 80 takes D = 128's 32-key tiles at 3 blocks an SM (158 registers;
+//    64-key tiles at 2 blocks were 18% slower), at D <= 64 64-key tiles at
+//    2 blocks. D = 80 rows are 88 bf16, 11 16-byte units: dk / dv 69,120
+//    bytes, dq 45,056 bytes a block.
 //    Registers and spills per instance: `[ptxas flash_attention_bwd]` in
 //    chip_smoke.py's output (PERF.md keeps them); the tile and exp
 //    variants: `python -m repro_torch.kernels.tune_flash_bwd`.
@@ -507,8 +513,8 @@ struct MmaBwdPlan {
       (int)sizeof(float) * 2 * 3 * KV_BQ;
   // dq: 16 q rows a warp; key tiles of Q_BK through a 2-stage ring
   static constexpr int Q_BQ = 16 * WARPS;
-  static constexpr int Q_BK = D == 128 ? 32 : 64;
-  static constexpr int Q_BLOCKS = D == 128 ? 3 : 2;
+  static constexpr int Q_BK = D >= 80 ? 32 : 64;
+  static constexpr int Q_BLOCKS = D >= 80 ? 3 : 2;
   static constexpr int Q_SMEM =
       (int)sizeof(bf16) * (2 * Q_BQ + 2 * 2 * Q_BK) * PITCH;
   static_assert(D % 16 == 0 && D <= 128, "16-wide k steps, D <= 128");
@@ -1119,6 +1125,7 @@ int dispatch_f32(const void* q, const void* k, const void* v,
     BWD_CASE(32)
     BWD_CASE(48)
     BWD_CASE(64)
+    BWD_CASE(80)
     BWD_CASE(128)
     BWD_CASE(256)
     default:
@@ -1142,6 +1149,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v,
     BWD_CASE(32)
     BWD_CASE(48)
     BWD_CASE(64)
+    BWD_CASE(80)
     BWD_CASE(128)
     case 256:
       return launch<256, bf16>(q, k, v, dout, m, l, delta, dq, dk, dv, B, H,

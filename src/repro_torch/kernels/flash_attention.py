@@ -4,13 +4,21 @@ kernel ``repro/kernels/flash_attention.py::flash_attention_pallas``) and
 ``csrc/flash_attention_bwd.cu`` (the backward, the port of the reference's
 plain-jnp ``repro/kernels/ops.py::_flash_bwd``).
 
+Head dims: ``HEAD_DIMS`` (16, 32, 48, 64, 80, 128, 256), each a compiled
+instance of every kernel below; 80 is h2o-danube-1.8b's (2560 / 32), 128
+starcoder2-3b's and deepseek-coder-33b's, 256 the gemma family's.
+
 Forward: bfloat16 inputs go to the tensor-core kernel (``mma.sync``, bf16
 products with f32 accumulation), float32 inputs to the f32 kernel on the
 CUDA cores (the reference's f32 tolerance rules out TF32). Either also
 writes the f32 row statistics (m, l) when asked. Backward, deterministic
 (no atomics): bfloat16 at head dims up to 128 on the tensor cores (P and
-dS split into two bf16 operands each), float32 and bfloat16 at head dim
-256 on the CUDA cores in f32.
+dS split into two bf16 operands each; at D = 128 the dk / dv kernel forms
+its scores 16 queries at a time, below it a whole 64-query step at once;
+at D = 80 and 128 the dq kernel walks 32-key tiles at 3 blocks an SM,
+below 64-key tiles at 2: the plans that keep their accumulators in
+registers, chosen from ``ptxas -v`` and ``tune_flash_bwd``),
+float32 and bfloat16 at head dim 256 on the CUDA cores in f32.
 
 Gradient: a tensor that needs a gradient goes through ``_FlashFunction``,
 the counterpart of the reference's custom VJP: its forward launches the
@@ -33,7 +41,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 48, 64, 128, 256)
+HEAD_DIMS = (16, 32, 48, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fwd = None
 _bwd = None

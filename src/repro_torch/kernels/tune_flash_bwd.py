@@ -1,15 +1,17 @@
 """Time variants of the bf16 tensor-core flash backward on one CUDA card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune_flash_bwd
+    PYTHONPATH=src python -m repro_torch.kernels.tune_flash_bwd [--head-dim 80]
 
 ``csrc/flash_attention_bwd.cu`` fixes its tiles in ``MmaBwdPlan``. This script
 builds copies of that source with one plan constant changed (the dk / dv
 kernel's q step and how many queries of scores it forms at once, the dq
 kernel's key tile and blocks an SM) or with the library's ``expf`` in place
-of ``ex2.approx``, prints the registers and spills of each D = 128 instance,
-and holds each against the committed kernels at the starcoder2-3b training
-shape (B=8, S=2048, H=24, KV=2, D=128, bf16, causal): bit for bit where only
-the tiles change, within one bf16 ulp of the plain backward for ``expf``.
+of ``ex2.approx``, prints the registers and spills of each instance at the
+head dim asked for, and holds each against the committed kernels at that
+head dim's training shape (``SHAPES``: D = 128, the default, starcoder2-3b's
+B=8, S=2048, H=24, KV=2; D = 80, h2o-danube-1.8b's B=8, S=2048, H=32, KV=8,
+window 4096; bf16, causal): bit for bit where only the tiles change, within
+one bf16 ulp of the plain backward for ``expf``.
 Two probes compute wrong gradients on purpose (no exp; no "lo" half of the
 split products of P and dS) to show what the per-element work and the split
 cost; they are timed only. Times: CUDA events over 10 calls, three rounds in
@@ -19,6 +21,7 @@ at the first mismatch.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import subprocess
@@ -29,12 +32,13 @@ import torch
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as fa
 
-SHAPE = (8, 2048, 24, 2, 128)          # (B, S, H, KV, D), causal
+# head dim -> (B, S, H, KV, window), causal
+SHAPES = {128: (8, 2048, 24, 2, 0), 80: (8, 2048, 32, 8, 4096)}
 TOL = 8e-3                             # one bf16 ulp, as chip_smoke.py holds it
 KV_BQ = "static constexpr int KV_BQ = 64;"
 KV_QS = "static constexpr int KV_QS = D == 128 ? 16 : KV_BQ;"
-Q_BK = "static constexpr int Q_BK = D == 128 ? 32 : 64;"
-Q_BLOCKS = "static constexpr int Q_BLOCKS = D == 128 ? 3 : 2;"
+Q_BK = "static constexpr int Q_BK = D >= 80 ? 32 : 64;"
+Q_BLOCKS = "static constexpr int Q_BLOCKS = D >= 80 ? 3 : 2;"
 EX2 = "p = keep ? ex2(fmaf(x, LOG2E, -rm)) * rli : 0.f;"
 LO_PRODUCTS = [f"mma_bf16({acc}[2 * dp2{j}], {lo}[kk], bf[{b0}], bf[{b1}]);"
                for acc, lo in (("adv", "pl"), ("adk", "sl"), ("acc", "sl"))
@@ -45,6 +49,10 @@ VARIANTS = {
     "q step 16": ({KV_BQ: KV_BQ.replace("64", "16")}, "bits"),
     "scores of a whole q step at once": (
         {KV_QS: "static constexpr int KV_QS = KV_BQ;"}, "bits"),
+    "scores 32 queries at a time": (
+        {KV_QS: "static constexpr int KV_QS = 32;"}, "bits"),
+    "scores 16 queries at a time": (
+        {KV_QS: "static constexpr int KV_QS = 16;"}, "bits"),
     "dq 64-key tiles, 2 blocks an SM": (
         {Q_BK: Q_BK.replace("32", "64"),
          Q_BLOCKS: Q_BLOCKS.replace("3", "2")}, "bits"),
@@ -58,9 +66,9 @@ VARIANTS = {
 }
 
 
-def _build():
+def _build(d):
     """{name: C entry point} of every variant, built in parallel; prints
-    the D = 128 instances' registers and spills."""
+    the head dim ``d`` instances' registers and spills."""
     out = build.BUILD_DIR / "tune_flash_bwd"
     out.mkdir(parents=True, exist_ok=True)
     text = (build.CSRC / "flash_attention_bwd.cu").read_text()
@@ -89,11 +97,11 @@ def _build():
         entry = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '\S*?(flash_bwd_mma_\w+"
-                          r"_kernel)ILi128E", line)
+                          rf"_kernel)ILi{d}E", line)
             if m or "Compiling entry function" in line:
                 entry = m.group(1) if m else None
             elif entry and ("registers" in line or "spill" in line):
-                print(f"[ptxas] {name}: {entry}<128>: {line.strip()}",
+                print(f"[ptxas] {name}: {entry}<{d}>: {line.strip()}",
                       flush=True)
     return fns
 
@@ -111,7 +119,11 @@ def _events_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--head-dim", type=int, default=128,
+                    choices=sorted(SHAPES))
+    d = ap.parse_args(argv).head_dim
     if not torch.cuda.is_available():
         sys.exit("tune_flash_bwd: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -119,26 +131,28 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
-    fns = _build()
-    b, s, h, kvh, d = SHAPE
+    fns = _build(d)
+    b, s, h, kvh, window = SHAPES[d]
+    print(f"shape (B, S, H, KV, D) = {(b, s, h, kvh, d)}, bf16, causal, "
+          f"window {window}", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     mk = lambda *shape: torch.randn(shape, generator=gen,
                                     device="cuda").to(torch.bfloat16)
     q, k, v, do = mk(b, s, h, d), mk(b, s, kvh, d), mk(b, s, kvh, d), \
         mk(b, s, h, d)
-    o, m, l = fa.flash_attention(q, k, v, return_stats=True)
+    o, m, l = fa.flash_attention(q, k, v, window=window, return_stats=True)
     delta = torch.empty((b, s, h), dtype=torch.float32, device="cuda")
     grads = [torch.empty_like(t) for t in (q, k, v)]
 
     def launch(fn):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-                 *(g.data_ptr() for g in grads), b, s, s, h, kvh, d, 1, 1, 0,
-                 0.0, float(d ** -0.5), 0, build.stream_ptr(q))
+                 *(g.data_ptr() for g in grads), b, s, s, h, kvh, d, 1, 1,
+                 window, 0.0, float(d ** -0.5), 0, build.stream_ptr(q))
         build.check(err, "flash_attention_bwd")
 
-    plain = ops.flash_bwd_chunked(q, k, v, o, m, l, do)
+    plain = ops.flash_bwd_chunked(q, k, v, o, m, l, do, window=window)
     launch(fns["committed"])
     want = [g.clone() for g in grads]
     for name, fn in fns.items():

@@ -55,9 +55,13 @@ def train_loop(cfg, *, steps, global_batch, seq_len, ckpt_every,
     device = resolve_device(device)
     model, optimizer, state, step_fn = build(cfg, accum=accum, seed=seed,
                                              device=device)
+    # prefetch starts after a restore has set the stream's step, not before
+    # as in the reference: load_state_dict stops a running prefetch thread
+    # with a 2 s join and then clears the stop flag for the new one, so a
+    # thread that outlived the join would go on queueing the old stream
     pipe = SyntheticLMPipeline(
         vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
-        enc_seq=cfg.encoder_seq, enc_dim=cfg.encoder_dim).start_prefetch()
+        enc_seq=cfg.encoder_seq, enc_dim=cfg.encoder_dim)
 
     own_bb = bb_system is None
     bb = bb_system or BurstBufferSystem(BBConfig(
@@ -82,6 +86,7 @@ def train_loop(cfg, *, steps, global_batch, seq_len, ckpt_every,
                   f"{restore_s:.3f}s")
         except FileNotFoundError:
             pass
+    pipe.start_prefetch()
 
     history = []
     t_last = time.perf_counter()

@@ -61,6 +61,26 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def zip_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure (the last
+    tree's keys), -> the tree of its results. Module-level recursion, not a
+    closure that calls itself: such a closure is a reference cycle, and the
+    tensors it holds would outlive the call until the garbage collector
+    runs (a whole train state a step, on the card)."""
+    ref = trees[-1]
+    if isinstance(ref, dict):
+        return {k: zip_map(fn, *(t[k] for t in trees)) for k in ref}
+    return fn(*trees)
+
+
+def unzip(tree, n: int):
+    """A tree of nested dicts whose leaves are n-tuples -> n trees."""
+    if isinstance(tree, dict):
+        kids = {k: unzip(v, n) for k, v in tree.items()}
+        return tuple({k: kid[i] for k, kid in kids.items()} for i in range(n))
+    return tree
+
+
 def tree_leaves(tree):
     """Leaves of nested dicts (in sorted-key order, the reference's order)
     and tuples (in field order)."""

@@ -13,7 +13,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.models.common import DTYPES, map_tree, tree_leaves
+from repro_torch.models.common import (DTYPES, map_tree, tree_leaves, unzip,
+                                      zip_map)
 
 
 class AdamWState(NamedTuple):
@@ -65,17 +66,6 @@ class AdamW:
             p_new = p.float() - lr * delta
             return p_new.to(p.dtype), m_new.to(dt), v_new.to(dt)
 
-        return _update_tree(upd, grads, state.m, state.v, params, step)
-
-
-def _update_tree(fn, g, m, v, p, step):
-    """Apply ``fn(g, m, v, p) -> (p, m, v)`` leaf by leaf over dicts of the
-    same structure; -> (params, AdamWState)."""
-    def walk(g, m, v, p):
-        if isinstance(p, dict):
-            outs = {k: walk(g[k], m[k], v[k], p[k]) for k in p}
-            return tuple({k: o[i] for k, o in outs.items()} for i in range(3))
-        return fn(g, m, v, p)
-
-    p_new, m_new, v_new = walk(g, m, v, p)
-    return p_new, AdamWState(step=step, m=m_new, v=v_new)
+        p_new, m_new, v_new = unzip(zip_map(upd, grads, state.m, state.v,
+                                            params), 3)
+        return p_new, AdamWState(step=step, m=m_new, v=v_new)

@@ -4,9 +4,11 @@ Counterpart of ``repro/runtime/train_step.py``. The step consumes a global
 batch dict {"inputs": (B,S), "labels": (B,S)} of int64 tensors on the
 params' device and runs ``accum_steps`` microbatches in a Python loop (the
 reference's ``lax.scan``), accumulating grads in ``cfg.grad_accum_dtype``;
-then global-norm clipping and the optimizer update. Eager: there is no jit,
-and the state is replaced, not donated. Multi-token prediction, encoder
-inputs, sharding constraints and Adafactor are not ported yet.
+then global-norm clipping and the optimizer update, AdamW or Adafactor
+(momentum 0.9, bf16) per the arch config, as the reference picks them.
+Eager: there is no jit, and the state is replaced, not donated.
+Multi-token prediction, encoder inputs, sharding constraints and the
+reference's ``state_logical_axes`` (sharding) are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.common import DTYPES, padded_vocab, tree_leaves
+from repro_torch.optim.adafactor import Adafactor
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.grad import clip_by_global_norm
 from repro_torch.optim.schedule import warmup_cosine
@@ -28,7 +31,7 @@ class TrainState(NamedTuple):
 def make_optimizer(cfg, *, peak_lr=3e-4, warmup=200, total=10_000):
     sched = warmup_cosine(peak_lr, warmup, total)
     if cfg.optimizer == "adafactor":
-        raise NotImplementedError(f"{cfg.name}: Adafactor is not ported yet")
+        return Adafactor(lr=sched, momentum=0.9)
     state_dtype = ("bfloat16" if cfg.grad_accum_dtype == "bfloat16"
                    else "float32")
     return AdamW(lr=sched, state_dtype=state_dtype)
@@ -54,14 +57,16 @@ def cross_entropy(logits, labels, vocab_size: int):
 def _like(tree, leaves):
     """A dict tree of ``tree``'s structure holding ``leaves`` (sorted-key
     order, as ``tree_leaves`` lists them)."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return walk(tree)
+def _fill(t, it):
+    # module-level recursion: a closure that calls itself would keep the
+    # leaves (the step's params and grads) alive until the garbage
+    # collector runs
+    if isinstance(t, dict):
+        return {k: _fill(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,

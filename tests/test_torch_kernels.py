@@ -40,6 +40,14 @@ BF16_CASES = [
     (2, 300, 300, 8, 2, 128, True, 100, 0.0, 0, "bfloat16", 3e-2),
     (1, 64, 200, 4, 2, 128, True, 0, 0.0, 136, "bfloat16", 3e-2),
 ]
+# head dim 80 (h2o-danube-1.8b: 2560 / 32) at GQA 4: a window of 64 whose
+# edge falls inside 64-key tiles of a ragged S, a q offset with Sq < Sk,
+# in f32 and in bf16, at the same tolerances
+D80_CASES = [
+    (1, 200, 200, 8, 2, 80, True, 64, 0.0, 0, "float32", 2e-5),
+    (2, 72, 200, 8, 2, 80, True, 0, 0.0, 128, "float32", 2e-5),
+    (1, 200, 200, 8, 2, 80, True, 64, 0.0, 0, "bfloat16", 3e-2),
+]
 
 # the plain versions: the chunked online softmax the CPU path runs (chunk 48
 # leaves a ragged last chunk in every case) and the naive oracle
@@ -57,7 +65,8 @@ def _pair(a: np.ndarray, dtype: str):
 
 
 @pytest.mark.parametrize("plain", sorted(PLAIN))
-@pytest.mark.parametrize("case", ATTN_CASES + D256_CASES + BF16_CASES)
+@pytest.mark.parametrize("case",
+                         ATTN_CASES + D256_CASES + BF16_CASES + D80_CASES)
 def test_plain_flash_matches_pallas_kernel(case, plain):
     b, sq, sk, h, kv, d, causal, window, cap, q_offset, dtype, tol = case
     rng = np.random.default_rng(7)
@@ -70,6 +79,24 @@ def test_plain_flash_matches_pallas_kernel(case, plain):
     out = PLAIN[plain](qt, kt, vt, causal=causal, window=window, softcap=cap,
                        q_offset=q_offset)
     assert out.dtype == qt.dtype and out.shape == qt.shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", D80_CASES)
+def test_plain_flash_at_head_dim_80_matches_reference_oracle(case):
+    """The port's chunked flash at head dim 80 against the reference's
+    naive oracle ``repro/kernels/ref.py::flash_attention``, which the Pallas
+    kernel's own tests hold it to."""
+    b, sq, sk, h, kv, d, causal, window, cap, q_offset, dtype, tol = case
+    rng = np.random.default_rng(8)
+    qj, qt = _pair(rng.normal(size=(b, sq, h, d)).astype(np.float32), dtype)
+    kj, kt = _pair(rng.normal(size=(b, sk, kv, d)).astype(np.float32), dtype)
+    vj, vt = _pair(rng.normal(size=(b, sk, kv, d)).astype(np.float32), dtype)
+    exp = jref.flash_attention(qj, kj, vj, causal=causal, window=window,
+                               softcap=cap, q_offset=q_offset)
+    out = ops.flash_chunked(qt, kt, vt, causal=causal, window=window,
+                            softcap=cap, q_offset=q_offset)
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(exp, np.float32), atol=tol, rtol=tol)
 

@@ -124,7 +124,8 @@ def test_leaf_names_match_reference_train_state():
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "deepseek-coder-33b",
+                                  "h2o-danube-1.8b"])
 def test_param_tree_matches_reference_through_serializer(arch):
     """The port's own params of a reduced config have the reference's leaf
     names, shapes and dtypes, and the reference's params carried into the
@@ -141,3 +142,18 @@ def test_param_tree_matches_reference_through_serializer(arch):
         params_from_numpy(jax.device_get(jparams), device="cpu"))
     assert ser.manifest_bytes(man) == jser.manifest_bytes(jman)
     assert pay == jpay
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_short_payload_raises(quantize):
+    """A payload shorter than its metadata implies (a read cut short)
+    raises instead of coming back as an uninitialized tensor; a zero-size
+    leaf's empty payload restores as an empty tensor."""
+    leaf = torch.arange(4096, dtype=torch.float32).reshape(2, 2048)
+    data, meta = ser.serialize_leaf(leaf, quantize)
+    for cut in (b"", data[:-4]):
+        with pytest.raises(ValueError, match="expected"):
+            ser.deserialize_leaf(cut, meta)
+    empty, emeta = ser.serialize_leaf(torch.zeros((0,)), False)
+    assert empty == b""
+    assert ser.deserialize_leaf(empty, emeta).shape == (0,)

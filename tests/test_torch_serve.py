@@ -104,3 +104,14 @@ def test_save_restore_serve_matches_reference():
     err = np.abs(got[m] - src[m])
     assert 0 < err.max() <= np.abs(src[m]).max() / 254 * (1 + 1e-4)
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
+
+
+def test_serve_cli_runs_reduced_h2o_danube_on_cpu(capsys):
+    """``--arch h2o-danube-1.8b --reduced --device cpu`` serves a prompt
+    longer than the reduced sliding window (16) end to end."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "h2o-danube-1.8b", "--reduced", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "24", "--gen", "4",
+                "--requests", "1"])
+    out = capsys.readouterr().out
+    assert "[serve] request-batch 0: (2, 4)" in out

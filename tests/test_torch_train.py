@@ -22,6 +22,7 @@ from repro.core import BurstBufferSystem as JBurstBufferSystem
 from repro.data.pipeline import SyntheticLMPipeline as JPipeline
 from repro.launch.train import train_loop as jtrain_loop
 from repro.models.registry import build_model as jbuild_model
+from repro.optim.adafactor import Adafactor as JAdafactor
 from repro.optim.adamw import AdamW as JAdamW
 from repro.optim.grad import clip_by_global_norm as jclip
 from repro.optim.schedule import constant as jconstant
@@ -35,6 +36,7 @@ from repro_torch.core import BBConfig, BurstBufferSystem
 from repro_torch.data.pipeline import SyntheticLMPipeline
 from repro_torch.launch import train
 from repro_torch.models.registry import build_model
+from repro_torch.optim.adafactor import Adafactor
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.grad import clip_by_global_norm
 from repro_torch.optim.schedule import constant, warmup_cosine
@@ -42,9 +44,10 @@ from repro_torch.runtime.train_step import (TrainState, cross_entropy,
                                             make_train_step)
 
 ARCH = "xlstm-350m"
-# the architectures trained against the reference: xLSTM (mLSTM, sLSTM) and
-# the north star's dense attention model (flash forward and backward)
-TRAIN_ARCHS = ("xlstm-350m", "starcoder2-3b")
+# the architectures trained against the reference: xLSTM (mLSTM, sLSTM),
+# the north star's dense attention model (flash forward and backward) and
+# the dense model that trains with Adafactor
+TRAIN_ARCHS = ("xlstm-350m", "starcoder2-3b", "deepseek-coder-33b")
 SEQ, BATCH, DATA_SEED = 16, 4, 11
 
 
@@ -57,8 +60,9 @@ def _tree(seed, shapes=(("emb", (40, 66)), ("w", (3, 8, 8)),
 
 
 def _flat(tree):
-    return {n: np.asarray(leaf.numpy() if isinstance(leaf, torch.Tensor)
-                          else leaf, np.float32)
+    return {n: np.asarray(leaf.float().numpy()
+                          if isinstance(leaf, torch.Tensor) else leaf,
+                          np.float32)
             for n, leaf in ser.tree_paths(tree)}
 
 
@@ -156,7 +160,8 @@ def _port_state(jstate):
 @pytest.fixture(scope="module", params=TRAIN_ARCHS)
 def pair(request):
     """A reduced ``TRAIN_ARCHS`` model in both packages from one JAX train
-    state, each with AdamW at the constant ``LR``: (jax cfg, model,
+    state, each with the config's optimizer (AdamW, or Adafactor with
+    make_optimizer's momentum 0.9) at the constant ``LR``: (jax cfg, model,
     optimizer, state; port cfg, model, optimizer, state). The state has
     taken one reference
     step on a batch of another stream, so that its moments are not zero:
@@ -167,21 +172,26 @@ def pair(request):
     arch = request.param
     jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
     jmodel = jbuild_model(jcfg)
-    jopt = JAdamW(lr=jconstant(LR))
+    if cfg.optimizer == "adafactor":
+        jopt = JAdafactor(lr=jconstant(LR), momentum=0.9)
+        opt = Adafactor(lr=constant(LR), momentum=0.9)
+    else:
+        jopt, opt = JAdamW(lr=jconstant(LR)), AdamW(lr=constant(LR))
     jstate = jts.init_train_state(jcfg, jmodel, jopt, jax.random.PRNGKey(0))
     warm = JPipeline(vocab_size=cfg.vocab_size, seq_len=SEQ,
                      global_batch=BATCH, seed=DATA_SEED + 1)._batch_at(0)
     jstate, _ = jax.jit(jts.make_train_step(jcfg, jmodel, jopt))(jstate,
                                                                  warm)
-    return (jcfg, jmodel, jopt, jstate, cfg, build_model(cfg),
-            AdamW(lr=constant(LR)), _port_state(jstate))
+    return (jcfg, jmodel, jopt, jstate, cfg, build_model(cfg), opt,
+            _port_state(jstate))
 
 
 def _assert_update_close(got, exp, before, tol):
     """The port's step against the reference's from one state: for every
     leaf of the params' change (after - ``before``, the flat params the
-    step started from) and of the moments m and v,
-    ||port - reference|| <= tol * ||reference||. A step that updates
+    step started from) and of the optimizer's moments (AdamW's m and v,
+    Adafactor's vr, vc and m), ||port - reference|| <= tol *
+    ||reference||; the step bit for bit. A step that updates
     nothing reads 1 on every param leaf, half an update 0.5, an update from
     the wrong bias correction tens of percent; a fixed atol could not
     separate them (v ~ grad^2 ~ 1e-8)."""
@@ -192,8 +202,8 @@ def _assert_update_close(got, exp, before, tol):
         if name.startswith(".params/"):
             p0 = before[name[len(".params/"):]]
             leaf, ref = leaf - p0, ref - p0
-        elif not name.startswith(".opt_state/.m/") \
-                and not name.startswith(".opt_state/.v/"):
+        elif not name.startswith(".opt_state/.") \
+                or name == ".opt_state/.step":
             assert np.array_equal(leaf, ref), name
             continue
         err = np.linalg.norm(leaf - ref)
@@ -208,7 +218,11 @@ def _assert_update_close(got, exp, before, tol):
 # relative, batch by batch; held to 2e-3. Per leaf, the step's param change
 # and the moments agree to <= 2.2e-3 of their norm (all measured); held to
 # 1e-2. starcoder2-3b (grad norm 3.7 to 6.6) agrees closer: loss 1.7e-7,
-# grad norm 1.3e-6, params' change and moments 3.8e-5 (measured)
+# grad norm 1.3e-6, params' change and moments 3.8e-5 (measured);
+# deepseek-coder-33b with Adafactor: loss 8.2e-8, grad norm 1.3e-6, params'
+# change 1.6e-4, the bf16 m 2.3e-4 (one bf16 rounding of two f32 values that
+# differ in the last place moves an element by a whole bf16 ulp), vr and vc
+# 3.1e-6 (measured)
 LOSS_TOL, GNORM_TOL, STEP_TOL = 1e-5, 2e-3, 1e-2
 
 
@@ -306,6 +320,15 @@ def test_failure_restore_bit_exact_continuation(pair):
                                   f"diverged from the uninterrupted run"
 
 
+# the AdamW configs only: the reference's checkpoint manager pwrites an
+# Adafactor state's empty (0,) payloads, which put an empty chunk under the
+# key of the next leaf's first chunk, and under load the two puts land in
+# either order (the port's manager, which wrote them the same way, lost
+# that chunk in 2 of 4 loaded runs of the kill test above; ROADMAP Queue
+# 3). A reference Adafactor checkpoint restores in the port bit for bit in
+# tests/test_torch_adafactor.py, through the serializers
+@pytest.mark.parametrize("pair", ["xlstm-350m", "starcoder2-3b"],
+                         indirect=True)
 def test_reference_train_loop_checkpoint_resumes_in_torch(pair, tmp_path):
     """The reference's ``train_loop`` trains 4 steps and checkpoints after
     step 3 (flushed to the PFS directory); the port's ``train_loop``, over
@@ -353,6 +376,17 @@ def test_train_cli_default_arch_runs_reduced_starcoder2_on_cpu(capsys):
     checkpoints."""
     train.main(["--reduced", "--device", "cpu", "--steps", "3", "--batch",
                 "2", "--seq", "32", "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    assert "[train] step 0 loss" in out
+    assert "[ckpt] step 2: ingest" in out
+
+
+def test_train_cli_runs_reduced_deepseek_coder_on_cpu(capsys):
+    """``--arch deepseek-coder-33b --reduced --device cpu``: Adafactor
+    trains and checkpoints (its bf16 m quantized to int8) end to end."""
+    train.main(["--arch", "deepseek-coder-33b", "--reduced", "--device",
+                "cpu", "--steps", "3", "--batch", "2", "--seq", "32",
+                "--ckpt-every", "2"])
     out = capsys.readouterr().out
     assert "[train] step 0 loss" in out
     assert "[ckpt] step 2: ingest" in out

@@ -132,3 +132,39 @@ def test_checkpoint_overlap_does_not_block_training():
         assert t_return == pytest.approx(ingest, abs=0.5)
         assert ingest < 5.0
         assert mgr.metrics[2]["flush_s"] > 0
+
+
+def test_adafactor_train_loop_restore_bit_exact():
+    """Reduced deepseek-coder-33b (Adafactor, bf16 momentum) through
+    ``train_loop``, as chip_smoke.py's training restarts drive it: run A
+    takes 6 steps; run B takes 3 with an unquantized checkpoint after step
+    2, loses server/0, restores from the replicas into a state drawn from
+    another seed and takes the rest. B's losses and every leaf of params
+    and Adafactor state (the step, vr, vc, the bf16 m, the zero-size vc of
+    the final norm) equal A's bit for bit."""
+    from repro_torch.launch.train import train_loop
+    cfg = reduced(get_config("deepseek-coder-33b"))
+    kw = dict(global_batch=4, seq_len=16, log_every=1, device="cpu")
+    state_a, hist_a, _ = train_loop(cfg, steps=6, ckpt_every=0, seed=0, **kw)
+    with BurstBufferSystem(BBConfig(num_servers=4, num_clients=4,
+                                    dram_capacity=64 << 20,
+                                    stabilize_interval=0.1)) as bb:
+        _, hist_b, _ = train_loop(cfg, steps=3, ckpt_every=2, bb_system=bb,
+                                  quantize_ckpt=False, seed=0, **kw)
+        bb.kill_server("server/0")
+        time.sleep(0.8)
+        for c in bb.clients:
+            c.put_timeout = 0.8
+        state_b, hist_b2, mgr = train_loop(cfg, steps=6, ckpt_every=0,
+                                           bb_system=bb, restore=True,
+                                           seed=1, **kw)
+    assert mgr.metrics[2]["restore_s"] > 0
+    assert [s for s, _ in hist_b2] == [3, 4, 5]
+    assert hist_b + hist_b2 == hist_a
+    assert type(state_b.opt_state).__name__ == "AdafactorState"
+    assert state_b.opt_state.m["embed"]["tokens"].dtype == torch.bfloat16
+    assert state_b.opt_state.vc["final_norm"]["scale"].shape == (0,)
+    got, exp = ser.tree_paths(state_b), ser.tree_paths(state_a)
+    assert [n for n, _ in got] == [n for n, _ in exp]
+    for (name, a), (_, b) in zip(got, exp):
+        assert torch.equal(a, b), f"{name}: the restored run diverged"
