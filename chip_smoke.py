@@ -33,8 +33,11 @@ Phases; any failure exits non-zero:
      in f32 and bf16, forward and backward: a window edge inside a ragged
      tile and a q offset with Sq < Sk at GQA 4 (32 heads / 8 kv), the h2o
      prefill shape (4, 5120, 32, 8, 80, window 4096) and a training-like
-     backward (8, 2048, 32, 8, 80, window 4096); and the forward and backward
-     at deepseek-coder-33b's training shape (8, 2048, 56, 8, 128).
+     backward (8, 2048, 32, 8, 80, window 4096); the forward and backward
+     at deepseek-coder-33b's training shape (8, 2048, 56, 8, 128); and the
+     forward at llama4-scout-17b-a16e's prefill shape (4, 8704, 40, 8, 128)
+     with its 8192-token window and without a window (NoPE), bf16 within
+     one bf16 ulp.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -65,7 +68,7 @@ Phases; any failure exits non-zero:
      in every step; besides them only quantize / dequantize run, for the
      int8 checkpoint.
   3e. the fifth path, the training restart of slice 5: full-width
-     deepseek-coder-33b (2 of 62 layers, bf16 params, Adafactor with bf16
+     deepseek-coder-33b (1 of 62 layers, bf16 params, Adafactor with bf16
      momentum and f32 factored second moments) through the same restart;
      the flash forward and backward (head dim 128) run once a layer in
      every step, quantize / dequantize once for each int8 leaf.
@@ -74,6 +77,15 @@ Phases; any failure exits non-zero:
      checkpoint, 3 request batches of 4 prompts of 5120 tokens (past its
      4096-token window); the flash forward at head dim 80 runs once a layer
      in every prefill.
+  3g. the seventh path, the serving restart of slice 7: llama4-scout-17b-a16e
+     at full width (16 experts at top-1 and a shared expert of d_ff 8192,
+     vocab 202048; depth cut to one moe_local and one moe_nope layer of 48,
+     6.48 G params) from a params-only checkpoint over 4 servers of 8 GiB,
+     3 request batches of 4 prompts of 8704 tokens (past its 8192-token
+     window); the flash forward runs once a layer in every prefill, the MoE
+     FFN (sorted capacity dispatch, expert products in torch.bmm) in every
+     prefill and decode step; a profile of the prefill splits the MoE FFN's
+     device time into its products and its dispatch and combine.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
      (serving), step time, tokens/s, save / flush / restore-after-kill and
@@ -95,6 +107,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SEED = 0
 STEP = 1000
 BATCH, PROMPT, GEN, REQUESTS = 4, 512, 32, 3
@@ -227,10 +240,12 @@ BWD_EDGE_CASES = [
 ]
 
 # slice 5: deepseek-coder-33b training at full width, DS_LAYERS of its 62
-# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128
-DS_LAYERS = 2
+# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128. One
+# layer since slice 7's path joined the run (two until then): its 12.95 GB
+# checkpoint takes minutes of the time limit in the buffer
+DS_LAYERS = 1
 DS_BATCH, DS_SEQ, DS_STEPS = 8, 2048, 8
-DS_DRAM = 4 << 30     # ~3.05 GB a server: ~6.1 GB at replication 2 over 4
+DS_DRAM = 4 << 30     # ~1.99 GB a server: ~3.97 GB at replication 2 over 4
 DS_TRAIN_ATTN_CASE = (DS_BATCH, DS_SEQ, DS_SEQ, 56, 8, 128, True, 0, 0.0, 0,
                       "bfloat16", D256_BF16_TOL)
 DS_TRAIN_FWD_CASE = DS_TRAIN_ATTN_CASE[:11] + (3e-2,)
@@ -257,6 +272,19 @@ H2O_PREFILL_CASE = (H2O_BATCH, H2O_PROMPT, H2O_PROMPT, H2O_HEADS, H2O_KV,
 # the main paths; the shape is its layer's at 8 x 2048 tokens)
 H2O_TRAIN_ATTN_CASE = (8, 2048, 2048, H2O_HEADS, H2O_KV, H2O_HEAD_DIM, True,
                        H2O_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
+# slice 7: llama4-scout-17b-a16e serving at full width, one layer of each of
+# its two kinds; a prompt 512 tokens past its 8192-token window
+LL_BATCH, LL_PROMPT, LL_GEN, LL_REQUESTS = 4, 8704, 32, 3
+LL_WINDOW, LL_HEADS, LL_KV, LL_HEAD_DIM = 8192, 40, 8, 128
+LL_SEGMENTS = ((("moe_local", "moe_nope"), 1),)
+LL_DRAM = 8 << 30     # ~6.03 GiB a server: ~12.95 GB at replication 2 over 4
+# the prefill of its moe_local layer (the window) and of its moe_nope layer
+# (causal, no window), bf16 within one bf16 ulp (D256_BF16_TOL's argument;
+# outputs of an 8192-key window are ~0.01)
+LL_PREFILL_CASE = (LL_BATCH, LL_PROMPT, LL_PROMPT, LL_HEADS, LL_KV,
+                   LL_HEAD_DIM, True, LL_WINDOW, 0.0, 0, "bfloat16",
+                   D256_BF16_TOL)
+LL_NOPE_CASE = LL_PREFILL_CASE[:7] + (0,) + LL_PREFILL_CASE[8:]
 # the training shapes, where two launches must be bit-identical
 TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE)
 
@@ -605,7 +633,9 @@ def check_kernels(gen):
             RG_PREFILL_CASE: "flash_attention_d256",
             TRAIN_FWD_CASE: "flash_attention_train",
             DS_TRAIN_FWD_CASE: "flash_attention_train_dsc",
-            H2O_PREFILL_CASE: "flash_attention_d80"}
+            H2O_PREFILL_CASE: "flash_attention_d80",
+            LL_PREFILL_CASE: "flash_attention_llama4",
+            LL_NOPE_CASE: "flash_attention_llama4_nope"}
     for case in ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES + list(rows):
         *_, causal, window, cap, q_offset, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
@@ -775,6 +805,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         t["ckpt_bytes"] = mgr.metrics[STEP]["bytes"]
         mgr.wait_flushes(timeout=600.0)
         t["flush_s"] = mgr.metrics[STEP].get("flush_s")
+        check(mgr.metrics[STEP].get("flushed"), f"the checkpoint was not "
+              f"durable on the PFS after {t['flush_s']} s")
         t0 = time.perf_counter()
         restored, step = mgr.restore(target)
         if device.type == "cuda":
@@ -906,6 +938,8 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
         if hist_b + hist_b2 != hist_a:
             _diagnose_restore(mgr, half - 1, saved_b)
         del saved_b
+    del bb, mgr
+    release_host_memory()
     check(t["restore_s"] is not None and [s for s, _ in hist_b2]
           == list(range(half, steps)), f"run B did not resume at step "
           f"{half}: {hist_b2}")
@@ -975,24 +1009,42 @@ def _diagnose_restore(mgr, step, saved):
           f"step {int(restored['data']['step'])}", flush=True)
 
 
-def host_memory(what: str):
+def release_host_memory():
     """Collect garbage (the burst buffer's threads and stores form
-    reference cycles) and print this process's resident host memory."""
+    reference cycles, so a closed buffer's DRAM store and shuffle buffers
+    outlive it until the collector runs) and hand the freed heap back to
+    the system (glibc keeps it in its arenas otherwise), so that the next
+    buffer starts from what is live: the machine has 96 GiB, and a save,
+    flush and restore holds about six times its checkpoint's bytes."""
+    import ctypes
     import gc
     gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def host_memory(what: str):
+    """``release_host_memory`` and print this process's resident host
+    memory, now and at its peak so far."""
+    import resource
+    release_host_memory()
     rss = next((line.split(":", 1)[1].strip()
                 for line in open("/proc/self/status")
                 if line.startswith("VmRSS")), "not measured")
-    print(f"[host] after {what}: resident memory {rss}", flush=True)
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss   # kB
+    print(f"[host] after {what} at {time.perf_counter() - T_START:.1f}s: "
+          f"resident memory {rss} (peak so far {peak} kB)", flush=True)
 
 
 # ------------------------------------------------------------------ phase 4
 
 
-def device_profile(what: str, fn):
+def device_profile(what: str, fn, scope: str = ""):
     """Run ``fn`` once under torch.profiler and print its wall time, the
     device's busy time (sum of kernel and copy times) and top kernels. The
-    traced run is separate from the timed ones: tracing slows the host."""
+    traced run is separate from the timed ones: tracing slows the host.
+    ``scope``: the name of ``record_function`` ranges inside ``fn``; the
+    device time of the kernels launched inside them is printed by the op
+    that launched each (``_scope_device_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1003,7 +1055,9 @@ def device_profile(what: str, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range's device-side copy is not a kernel
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
     if not by_name:
@@ -1022,10 +1076,47 @@ def device_profile(what: str, fn):
           + "; the port's kernels: " + ("; ".join(
               f"{name} {ms:.3f} ms" for name, ms in port) or "none"),
           flush=True)
+    if scope:
+        by_op = _scope_device_ms(prof, scope)
+        inside = sum(by_op.values())
+        products = sum(ms for op, ms in by_op.items() if op in MATMUL_OPS)
+        rest = sorted(((op, ms) for op, ms in by_op.items()
+                       if op not in MATMUL_OPS), key=lambda kv: -kv[1])
+        print(f"[profile] {what}, inside '{scope}': {inside:.3f} ms = "
+              f"{100 * inside / busy:.1f}% of the busy time; products "
+              f"({', '.join(sorted(op for op in by_op if op in MATMUL_OPS))})"
+              f" {products:.3f} ms = {100 * products / max(inside, 1e-9):.1f}"
+              f"%, the rest (routing, sort, gathers, scatter, combine, "
+              f"activation) {inside - products:.3f} ms = "
+              f"{100 * (inside - products) / max(inside, 1e-9):.1f}%: "
+              + "; ".join(f"{op} {ms:.3f} ms" for op, ms in rest[:8]),
+              flush=True)
+
+
+# the aten ops that run a matrix product's kernels
+MATMUL_OPS = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm")
+
+
+def _scope_device_ms(prof, scope: str):
+    """{aten op: device ms} of the kernels launched inside every CPU range
+    named ``scope`` in ``prof``, each kernel under the op that launched it
+    (its innermost CPU op)."""
+    import torch
+    by_op = {}
+    stack = [e for e in prof.events() if e.name == scope
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    while stack:
+        e = stack.pop()
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if ms:
+            by_op[e.name] = by_op.get(e.name, 0.0) + ms
+        stack.extend(e.cpu_children)
+    return by_op
 
 
 def time_serving(cfg, model, params, prompts, gen_tokens):
     import torch
+    from repro_torch.models import moe
     b, s = prompts.shape
     with torch.inference_mode():
         def run_prefill():
@@ -1052,7 +1143,23 @@ def time_serving(cfg, model, params, prompts, gen_tokens):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
 
-        device_profile(f"{cfg.name} prefill (B={b}, S={s})", run_prefill)
+        if cfg.num_experts:
+            # the traced prefill runs each MoE FFN in a range of its own
+            apply_moe = moe.apply_moe
+
+            def scoped(*args):
+                with torch.profiler.record_function("moe"):
+                    return apply_moe(*args)
+
+            moe.apply_moe = scoped
+            try:
+                device_profile(f"{cfg.name} prefill (B={b}, S={s})",
+                               run_prefill, scope="moe")
+            finally:
+                moe.apply_moe = apply_moe
+        else:
+            device_profile(f"{cfg.name} prefill (B={b}, S={s})",
+                           run_prefill)
         logits, cache = run_prefill()
         device_profile(f"{cfg.name} decode ({gen_tokens - 1} steps, B={b})",
                        lambda: run_decode(logits, cache))
@@ -1078,11 +1185,12 @@ def _causal_pairs(case):
                        for i in range(s))
 
 
-def _flash_row(name, case, gen, launches, err, stats=False):
+def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
     the (q, k) pairs the causal and window masks leave; ``stats``: the
     kernel also writes the row statistics (the training path's forward),
-    m and l counted in its bytes. ``ms`` and
+    m and l counted in its bytes; ``plain_iters``: the plain version's
+    timed calls (after one warm-up when fewer than 20). ``ms`` and
     ``library_ms`` are CUDA-event times of back-to-back calls from Python,
     which include whatever of each call's host cost the device does not
     hide; ``graph_ms`` and ``library_graph_ms`` are device times of one
@@ -1118,7 +1226,9 @@ def _flash_row(name, case, gen, launches, err, stats=False):
         "launches": launches, "max_abs_err": err,
         "ms": cuda_ms(kernel),
         "plain_ms": cuda_ms(lambda: ops.flash_chunked(q, k, v, causal=causal,
-                                                      window=window)),
+                                                      window=window),
+                            iters=plain_iters,
+                            warmup=3 if plain_iters >= 20 else 1),
         "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library),
         "graph_ms": graph_ms(kernel, calls=calls),
         "library_graph_ms": graph_ms(library, calls=calls),
@@ -1262,6 +1372,7 @@ def kernel_line(gen, launches, err, bwd_ran):
     sc, rg = launches["starcoder2-3b"], launches["recurrentgemma-9b"]
     xl, sct = launches["xlstm-350m"], launches["starcoder2-3b train"]
     ds, h2o = launches["deepseek-coder-33b"], launches["h2o-danube-1.8b"]
+    ll = launches["llama4-scout-17b-a16e"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
                            sc["flash_attention"], err["flash_attention"]),
@@ -1321,6 +1432,21 @@ def kernel_line(gen, launches, err, bwd_ran):
         rows.append(_flash_row("flash_attention_d80", H2O_PREFILL_CASE, gen,
                                h2o["flash_attention"],
                                err["flash_attention_d80"]))
+        # slice 7: llama4's prefill at head dim 128, 40 heads over 8 KV; the
+        # row's launches are both layers' (one moe_local, one moe_nope a
+        # request), its times the moe_local layer's 8192-token window (SDPA
+        # with a boolean window mask) and, as nope_*, the moe_nope layer's
+        # causal attention (SDPA with is_causal)
+        row = _flash_row("flash_attention_llama4", LL_PREFILL_CASE, gen,
+                         ll["flash_attention"],
+                         err["flash_attention_llama4"], plain_iters=5)
+        nope = _flash_row("flash_attention_llama4_nope", LL_NOPE_CASE, gen,
+                          ll["flash_attention"],
+                          err["flash_attention_llama4_nope"], plain_iters=5)
+        row.update({f"nope_{key}": nope[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "graph_ms", "library_graph_ms")})
+        rows.append(row)
     # the backward at the training shapes; no main path trains h2o-danube,
     # so its D = 80 row has no launches there
     for name, case, runs in (
@@ -1451,6 +1577,59 @@ def _layer_seconds(cfg, params, kind, device, batch, seq, reps=2):
     return (time.perf_counter() - t0) / reps
 
 
+def llama4_path(device):
+    """Phase 3g, the serving restart of slice 7: llama4-scout-17b-a16e at
+    full width from a params-only checkpoint, one layer of each of its two
+    kinds (``LL_SEGMENTS``), prompts past its window. Prints the path's
+    numbers and returns its launch counts."""
+    import torch
+    from repro_torch.configs.base import get_config
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, segments=LL_SEGMENTS)
+    check(cfg.resolved_head_dim == LL_HEAD_DIM
+          and cfg.window_size == LL_WINDOW
+          and (cfg.num_heads, cfg.num_kv_heads) == (LL_HEADS, LL_KV)
+          and (cfg.num_experts, cfg.top_k) == (16, 1),
+          "llama4-scout-17b-a16e shapes")
+    print(f"[main] {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.resolved_head_dim}, {cfg.num_experts} experts at "
+          f"top-{cfg.top_k} of d_ff {cfg.d_ff_expert} and "
+          f"{cfg.num_shared_experts} shared of d_ff {cfg.d_ff_shared}, "
+          f"capacity factor {cfg.capacity_factor}, window "
+          f"{cfg.window_size} (moe_local; rope_theta {cfg.rope_theta:g})"
+          f", moe_nope without rotary embedding, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}), reduced: segments {full.segments} -> "
+          f"{cfg.segments}, num_layers {full.num_layers} -> "
+          f"{cfg.num_layers}; {cfg.param_count()} params "
+          f"({full.param_count()} at full depth); prompt {LL_PROMPT} past the "
+          f"window; params-only checkpoint over 4 servers of "
+          f"{LL_DRAM / 2**30:.0f} GiB DRAM", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t, launches, (model, params, prompts, n_quant) = \
+        serving_restart(cfg, device, batch=LL_BATCH, prompt=LL_PROMPT,
+                        gen_tokens=LL_GEN, requests=LL_REQUESTS,
+                        dram_capacity=LL_DRAM, train_state=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": (_layers(cfg, "moe_local")
+                                + _layers(cfg, "moe_nope")) * LL_REQUESTS,
+            "flash_attention_bwd": 0, "rg_lru": 0, "mlstm": 0,
+            "quantize_blockwise": n_quant, "dequantize_blockwise": n_quant}
+    print(f"[main] launches in save -> restore -> serve: {launches} "
+          f"(expected {want})", flush=True)
+    check(launches == want and launches["flash_attention"] == 6,
+          f"launch counts {launches} != {want}")
+    print(f"[numbers] {cfg.name}: peak device memory {peak_gb:.2f} GB "
+          f"over save -> restore -> serve (the un-saved params, the zero "
+          f"target and the restored params: "
+          f"{3 * 2 * cfg.param_count() / 1e9:.2f} GB); checkpoint "
+          f"{t['ckpt_bytes']} bytes, "
+          f"{2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server",
+          flush=True)
+    serving_numbers(cfg, t, model, params, prompts, LL_GEN)
+    return launches
+
+
 def main():
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts; the training path runs twice and is compared bit for bit
@@ -1470,6 +1649,7 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     err, bwd_ran = check_kernels(gen)
+    host_memory("phase 2")
 
     # phase 3: slice 1's path, starcoder2-3b from a training-layout state
     from repro_torch.configs.base import get_config
@@ -1624,12 +1804,18 @@ def main():
     del h2o_model, h2o_params, h2o_prompts
     host_memory("phase 3f")
 
+    # phase 3g: slice 7's path, llama4-scout-17b-a16e at full width
+    ll_launches = llama4_path(device)
+    host_memory("phase 3g")
+
     rows = kernel_line(gen, {"starcoder2-3b": launches,
                              "recurrentgemma-9b": rg_launches,
                              "xlstm-350m": xl_launches,
                              "starcoder2-3b train": sc_launches,
                              "deepseek-coder-33b": ds_launches,
-                             "h2o-danube-1.8b": h2o_launches}, err, bwd_ran)
+                             "h2o-danube-1.8b": h2o_launches,
+                             "llama4-scout-17b-a16e": ll_launches}, err,
+                       bwd_ran)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

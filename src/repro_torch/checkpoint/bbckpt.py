@@ -13,7 +13,10 @@ entirely against the BBFileSystem file-session API:
      the only part on the training critical path, bounded by BB ingress
      (DRAM write + replication ACK), not the PFS.
   2. A background flush thread triggers the servers' two-phase I/O so the
-     checkpoint drains to the PFS while the next compute phase runs.
+     checkpoint drains to the PFS while the next compute phase runs, and
+     waits until the epoch is durable there (the reference stops waiting
+     after the system's 30 s): ``metrics[step]["flush_s"]`` is the time to
+     durability and ``["flushed"]`` says whether it was reached.
   3. Recent epochs are retained in the buffer (paper §III-C) so restore()
      is served from server DRAM/SSD without touching the PFS; older epochs
      are evicted once durably flushed (retention eviction leaves tombstones,
@@ -46,6 +49,14 @@ from typing import Callable, Dict, List, Optional
 from repro_torch.checkpoint import serializer as ser
 from repro_torch.core import telemetry
 from repro_torch.core.system import BurstBufferSystem
+
+# how long a flush waits for its epoch to be durable on the PFS after the
+# system's own flush call has stopped waiting (30 s) while the servers go on
+# writing: a 12.95 GB checkpoint over four servers took 35 to 57 s to flush
+# on an H100 machine's host, and a restore begun while the servers still
+# wrote their domains found the manifest unreadable (their message loops
+# busy, its PFS copy not written yet)
+FLUSH_TIMEOUT_S = 600.0
 
 
 class BBCheckpointManager:
@@ -125,7 +136,7 @@ class BBCheckpointManager:
 
         epoch = step
         if blocking_flush:
-            self.system.flush(epoch)
+            self.metrics[step]["flushed"] = self._flush(epoch)
             self._retire(step)
         else:
             t = threading.Thread(target=self._flush_async,
@@ -137,9 +148,16 @@ class BBCheckpointManager:
     def _flush_async(self, epoch: int, step: int):
         t0 = self._clock()
         with telemetry.span("ckpt.flush", "checkpoint", step=step):
-            self.system.flush(epoch)
+            flushed = self._flush(epoch)
+        self.metrics[step]["flushed"] = flushed
         self.metrics[step]["flush_s"] = self._clock() - t0
         self._retire(step)
+
+    def _flush(self, epoch: int) -> bool:
+        """Flush ``epoch`` and wait until it is durable on the PFS, at most
+        ``FLUSH_TIMEOUT_S`` past the system's own wait; True if it is."""
+        return self.system.flush(epoch) \
+            or self.system.manager.wait_flush(epoch, FLUSH_TIMEOUT_S)
 
     def _retire(self, step: int):
         """Evict buffered epochs beyond the retention window (they are

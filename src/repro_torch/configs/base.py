@@ -16,6 +16,9 @@ Layer kinds the port builds so far (see models/transformer.py registry):
   rglru       RG-LRU recurrent block (Griffin) + dense MLP
   mlstm       xLSTM matrix-memory block (chunkwise-parallel kernel)
   slstm       xLSTM scalar-memory block (sequential) + gated FFN
+  moe         global self-attention + MoE FFN (routed experts + optional shared)
+  moe_local   sliding-window self-attention + MoE FFN
+  moe_nope    global self-attention without RoPE (NoPE) + MoE FFN
 """
 from __future__ import annotations
 
@@ -129,7 +132,8 @@ def _load_all():
     # import every config module once so @register side effects run
     import importlib
     for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b",
-                "xlstm_350m", "deepseek_coder_33b", "h2o_danube_1_8b"):
+                "xlstm_350m", "deepseek_coder_33b", "h2o_danube_1_8b",
+                "llama4_scout_17b_a16e"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -46,7 +46,15 @@ def build_model(cfg) -> Model:
     )
 
 
-def count_params(cfg) -> int:
-    """Analytic parameter count from the descriptor tree."""
-    return sum(math.prod(d.shape)
-               for d in tree_leaves(transformer.model_descs(cfg)))
+def count_params(cfg, active_only: bool = False) -> int:
+    """Analytic parameter count from the descriptor tree.
+
+    active_only: count routed-expert params at the top_k/num_experts fraction
+    (MoE "activated parameters")."""
+    total = 0
+    for d in tree_leaves(transformer.model_descs(cfg)):
+        n = math.prod(d.shape)
+        if active_only and "experts" in d.axes:
+            n = int(n * cfg.top_k / max(cfg.num_experts, 1))
+        total += n
+    return total

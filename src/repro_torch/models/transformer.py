@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/models/transformer.py`` for the layer kinds ``attn``
 and ``attn_local`` (global and sliding-window self-attention with a dense
-MLP), ``rglru`` (the Griffin recurrent block with a dense MLP), and
-``mlstm`` and ``slstm`` (the xLSTM blocks). A model
+MLP), ``moe``, ``moe_local`` and ``moe_nope`` (global, sliding-window and
+NoPE global self-attention with a mixture-of-experts FFN), ``rglru`` (the
+Griffin recurrent block with a dense MLP), and ``mlstm`` and ``slstm`` (the
+xLSTM blocks). A model
 = embedding -> [segments] -> final norm -> unembedding, where each segment
 repeats a fixed ``unit`` of layer kinds; the reference scans over the
 stacked layer dimension, the port loops over it in Python.
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_norm, apply_rope,
@@ -39,13 +42,19 @@ class Kind:
 
 
 # ---------------------------------------------------------------------------
-# attention kinds (self-attn + dense FFN)
+# attention kinds (self-attn + dense or MoE FFN)
 
 
-def _make_attn_kind(*, window_attr=None, local_theta=False):
+def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
+                    ffn="dense"):
     def descs(cfg):
-        return {"norm1": norm_descs(cfg), "attn": attn.attn_descs(cfg),
-                "norm2": norm_descs(cfg), "mlp": mlp_descs(cfg)}
+        d = {"norm1": norm_descs(cfg), "attn": attn.attn_descs(cfg),
+             "norm2": norm_descs(cfg)}
+        if ffn == "dense":
+            d["mlp"] = mlp_descs(cfg)
+        else:
+            d["moe"] = moe_mod.moe_descs(cfg)
+        return d
 
     def _window(cfg):
         return getattr(cfg, window_attr) if window_attr else 0
@@ -53,12 +62,19 @@ def _make_attn_kind(*, window_attr=None, local_theta=False):
     def _theta(cfg):
         return cfg.rope_theta_local if local_theta else cfg.rope_theta
 
+    def _acfg(cfg):
+        # NoPE layers attend without rotary embeddings
+        return cfg if rope else dataclasses.replace(cfg, pos_embed="none")
+
     def _ffn(cfg, p, x):
-        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        h = apply_norm(cfg, p["norm2"], x)
+        h = apply_mlp(cfg, p["mlp"], h) if ffn == "dense" \
+            else moe_mod.apply_moe(cfg, p["moe"], h)
+        return x + h
 
     def apply(cfg, p, x, ext):
         h = apply_norm(cfg, p["norm1"], x)
-        h = attn.self_attention(cfg, p["attn"], h, ext["positions"],
+        h = attn.self_attention(_acfg(cfg), p["attn"], h, ext["positions"],
                                 window=_window(cfg), rope_theta=_theta(cfg))
         return _ffn(cfg, p, x + h)
 
@@ -69,15 +85,16 @@ def _make_attn_kind(*, window_attr=None, local_theta=False):
 
     def decode(cfg, p, x, cache, ext):
         h = apply_norm(cfg, p["norm1"], x)
-        h, kv = attn.decode_self_attention(cfg, p["attn"], h, cache["kv"],
-                                           ext["pos"], window=_window(cfg),
+        h, kv = attn.decode_self_attention(_acfg(cfg), p["attn"], h,
+                                           cache["kv"], ext["pos"],
+                                           window=_window(cfg),
                                            rope_theta=_theta(cfg))
         return _ffn(cfg, p, x + h), {"kv": kv}
 
     def prefill(cfg, p, x, cache, ext):
         h = apply_norm(cfg, p["norm1"], x)
         q, k, v = attn._project_qkv(cfg, p["attn"], h)
-        if cfg.pos_embed == "rope":
+        if rope and cfg.pos_embed == "rope":
             q = apply_rope(q, ext["positions"], _theta(cfg))
             k = apply_rope(k, ext["positions"], _theta(cfg))
         o = kops.flash_attention(q, k, v, causal=True, window=_window(cfg),
@@ -153,6 +170,10 @@ def _slstm_decode(cfg, p, x, cache, ext):
 KINDS: Dict[str, Kind] = {
     "attn": _make_attn_kind(),
     "attn_local": _make_attn_kind(window_attr="window_size", local_theta=True),
+    "moe": _make_attn_kind(ffn="moe"),
+    # llama4's chunked local layers use the global rope_theta
+    "moe_local": _make_attn_kind(window_attr="window_size", ffn="moe"),
+    "moe_nope": _make_attn_kind(rope=False, ffn="moe"),
     "rglru": Kind(_rglru_descs, _rglru_apply, _rglru_cache, _rglru_decode,
                   _rglru_prefill),
     # prefill runs the decode block over the whole prompt, as for rglru

@@ -2,7 +2,8 @@
 as the reference's manager tests in ``tests/test_checkpoint.py`` hold
 ``repro/checkpoint/bbckpt.py``: a save / restore round trip, the latest of
 several saves with retention evicting the oldest, and a restore of an
-evicted checkpoint from the PFS (staged back into the buffer). Torch trees
+evicted checkpoint from the PFS (staged back into the buffer); and, the
+port's own, a flush that waits until its epoch is durable. Torch trees
 on the CPU; the same code runs on the card in ``chip_smoke.py``'s
 restarts."""
 import numpy as np
@@ -68,3 +69,31 @@ def test_restore_from_pfs_after_eviction():
         restored, step = mgr.restore(_tree(0), step=1)   # evicted from BB
         assert step == 1
         _assert_equal(restored, _tree(1))
+
+
+def test_flush_waits_until_the_epoch_is_durable():
+    """A flush that outlasts the system's own wait (here the system's flush
+    call begins the epoch and returns False at once, as after its 30 s):
+    the manager waits until every server has written its domain, records
+    ``flushed``, and the PFS holds both files byte for byte."""
+    import os
+    with _system() as bb:
+        real_flush = bb.flush
+
+        def impatient_flush(epoch):
+            real_flush(epoch, timeout=0.0)
+            return False
+
+        bb.flush = impatient_flush
+        mgr = BBCheckpointManager(bb, quantize=False)
+        tree = _tree(3)
+        mgr.save(4, tree)
+        mgr.wait_flushes(timeout=60.0)
+        assert mgr.metrics[4]["flushed"] is True
+        assert bb.manager.flush_complete(4)
+        for name in ("ckpt_00000004", "ckpt_00000004.manifest"):
+            assert os.path.exists(os.path.join(bb.pfs_dir, name)), name
+        mgr.save(5, tree, blocking_flush=True)
+        assert mgr.metrics[5]["flushed"] is True
+        restored, step = mgr.restore(_tree(99), step=4)
+        _assert_equal(restored, tree)

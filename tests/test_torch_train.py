@@ -4,9 +4,11 @@ identical inputs; K train steps of reduced xlstm-350m and of reduced
 starcoder2-3b from one JAX-initialised state on the same
 SyntheticLMPipeline batches; the torch counterpart of the reference's
 bit-exact restore after a burst-buffer server is killed; a checkpoint
-written by the reference's ``train_loop`` resumed by the port's; and the
-training CLI. The mLSTM and flash kernels themselves run in
+written by the reference's ``train_loop`` resumed by the port's; the data
+stream's first batches after a restore, in the reference's order of
+prefetch and restore and in the port's; and the training CLI. The mLSTM and flash kernels themselves run in
 ``chip_smoke.py``'s training restarts on the card."""
+import threading
 import time
 
 import jax
@@ -360,6 +362,63 @@ def test_reference_train_loop_checkpoint_resumes_in_torch(pair, tmp_path):
     assert state.opt_state.step.item() == 6
     _assert_update_close(state, jstate, _flat(jax.device_get(jck.params)),
                          STEP_TOL)
+
+
+# ------------------------------------------- the data stream across a restore
+
+# the pipeline's load_state_dict stops a running prefetch thread with a 2 s
+# join, then clears the stop flag and starts a thread at the restored step.
+# A batch that takes longer than the join to build outlives it, and the old
+# thread then goes on feeding the queue; one that takes less (here 0.5 s,
+# five times the thread's 0.1 s put poll) ends with its thread
+JOIN_S = 2.0
+
+
+def _slow_pipe(delay):
+    """A pipeline whose ``_batch_at`` sleeps ``delay`` s first, the fast one
+    of the same stream, and an event set once a batch is being built."""
+    pipe = SyntheticLMPipeline(vocab_size=128, seq_len=SEQ,
+                               global_batch=BATCH, seed=DATA_SEED)
+    fast, building = pipe._batch_at, threading.Event()
+
+    def slow(step):
+        building.set()
+        time.sleep(delay)
+        return fast(step)
+
+    pipe._batch_at = slow
+    return pipe, fast, building
+
+
+@pytest.mark.parametrize("order,delay,restored", [
+    ("reference", 0.5, True), ("reference", JOIN_S + 0.5, False),
+    ("port", JOIN_S + 0.5, True)])
+def test_first_batches_after_a_restore(order, delay, restored):
+    """The reference's ``train_loop`` starts the prefetch and then loads the
+    restored stream state (``load_state_dict``); the port's loads it first
+    and then starts the prefetch. The first two batches after a restore at
+    step 7 are ``_batch_at(7)`` and ``_batch_at(8)`` in the reference's
+    order while a batch takes less than the join, and in the port's order
+    however long a batch takes; in the reference's order a batch slower
+    than the join lets the old thread put the batch of step 0 first."""
+    pipe, fast, building = _slow_pipe(delay)
+    state = {**pipe.state_dict(), "step": 7}
+    try:
+        if order == "reference":
+            pipe.start_prefetch()
+            assert building.wait(10.0)    # the thread is in _batch_at(0)
+            pipe.load_state_dict(state)
+        else:
+            pipe.load_state_dict(state)
+            pipe.start_prefetch()
+        got = [next(pipe)["inputs"] for _ in range(2)]
+    finally:
+        pipe.stop_prefetch()
+    want = [fast(7)["inputs"], fast(8)["inputs"]]
+    assert all(np.array_equal(a, b) for a, b in zip(got, want)) == restored
+    if not restored:
+        assert np.array_equal(got[0], fast(0)["inputs"])
+    assert pipe.step == 9
 
 
 def test_train_cli_runs_reduced_xlstm_on_cpu(capsys):

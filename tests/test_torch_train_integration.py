@@ -3,9 +3,11 @@
 star's dense attention model: training with async burst-buffer
 checkpoints survives a burst-buffer server failure and restores to a
 bit-exact state, and a checkpoint's ingest returns to training before its
-flush to the PFS ends. On the CPU the flash attention forward and backward
-are the plain versions; ``chip_smoke.py`` runs the same path on the card
-through the CUDA kernels."""
+flush to the PFS ends; reduced deepseek-coder-33b and llama4-scout-17b-a16e
+(Adafactor, the MoE kinds) go through ``train_loop``'s kill and restore. On
+the CPU the flash attention forward and backward are the plain versions;
+``chip_smoke.py`` runs the same path on the card through the CUDA
+kernels."""
 import threading
 import time
 
@@ -134,16 +136,15 @@ def test_checkpoint_overlap_does_not_block_training():
         assert mgr.metrics[2]["flush_s"] > 0
 
 
-def test_adafactor_train_loop_restore_bit_exact():
-    """Reduced deepseek-coder-33b (Adafactor, bf16 momentum) through
-    ``train_loop``, as chip_smoke.py's training restarts drive it: run A
-    takes 6 steps; run B takes 3 with an unquantized checkpoint after step
-    2, loses server/0, restores from the replicas into a state drawn from
-    another seed and takes the rest. B's losses and every leaf of params
-    and Adafactor state (the step, vr, vc, the bf16 m, the zero-size vc of
-    the final norm) equal A's bit for bit."""
+def _train_loop_kill_restore_bit_exact(arch):
+    """Reduced ``arch`` (Adafactor, bf16 momentum) through ``train_loop``,
+    as chip_smoke.py's training restarts drive it: run A takes 6 steps; run
+    B takes 3 with an unquantized checkpoint after step 2, loses server/0,
+    restores from the replicas into a state drawn from another seed and
+    takes the rest. B's losses and every leaf of params and Adafactor state
+    equal A's bit for bit. Returns B's final state."""
     from repro_torch.launch.train import train_loop
-    cfg = reduced(get_config("deepseek-coder-33b"))
+    cfg = reduced(get_config(arch))
     kw = dict(global_batch=4, seq_len=16, log_every=1, device="cpu")
     state_a, hist_a, _ = train_loop(cfg, steps=6, ckpt_every=0, seed=0, **kw)
     with BurstBufferSystem(BBConfig(num_servers=4, num_clients=4,
@@ -168,3 +169,22 @@ def test_adafactor_train_loop_restore_bit_exact():
     assert [n for n, _ in got] == [n for n, _ in exp]
     for (name, a), (_, b) in zip(got, exp):
         assert torch.equal(a, b), f"{name}: the restored run diverged"
+    return state_b
+
+
+def test_adafactor_train_loop_restore_bit_exact():
+    """Reduced deepseek-coder-33b: the zero-size vc of the final norm, the
+    bf16 m and vr / vc of the dense leaves through the kill."""
+    _train_loop_kill_restore_bit_exact("deepseek-coder-33b")
+
+
+def test_moe_train_loop_restore_bit_exact():
+    """Reduced llama4-scout-17b-a16e (moe_local x 3, moe_nope; 4 experts,
+    top-1, a shared expert): the MoE layers' 4-D expert leaves and their
+    Adafactor moments (vr (1, E, d), vc (1, E, f)) come back bit for bit
+    through the kill, and so does the run."""
+    state = _train_loop_kill_restore_bit_exact("llama4-scout-17b-a16e")
+    moe = state.params["segments"]["seg0"]["3"]["moe"]
+    assert moe["w_gate"].dim() == 4 and moe["router"].dim() == 3
+    assert state.opt_state.vc["segments"]["seg0"]["3"]["moe"]["w_gate"] \
+        .shape == moe["w_gate"].shape[:2] + moe["w_gate"].shape[3:]
