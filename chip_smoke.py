@@ -68,7 +68,7 @@ Phases; any failure exits non-zero:
      in every step; besides them only quantize / dequantize run, for the
      int8 checkpoint.
   3e. the fifth path, the training restart of slice 5: full-width
-     deepseek-coder-33b (1 of 62 layers, bf16 params, Adafactor with bf16
+     deepseek-coder-33b (2 of 62 layers, bf16 params, Adafactor with bf16
      momentum and f32 factored second moments) through the same restart;
      the flash forward and backward (head dim 128) run once a layer in
      every step, quantize / dequantize once for each int8 leaf.
@@ -240,12 +240,10 @@ BWD_EDGE_CASES = [
 ]
 
 # slice 5: deepseek-coder-33b training at full width, DS_LAYERS of its 62
-# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128. One
-# layer since slice 7's path joined the run (two until then): its 12.95 GB
-# checkpoint takes minutes of the time limit in the buffer
-DS_LAYERS = 1
+# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128
+DS_LAYERS = 2
 DS_BATCH, DS_SEQ, DS_STEPS = 8, 2048, 8
-DS_DRAM = 4 << 30     # ~1.99 GB a server: ~3.97 GB at replication 2 over 4
+DS_DRAM = 4 << 30     # ~3.05 GB a server: ~6.1 GB at replication 2 over 4
 DS_TRAIN_ATTN_CASE = (DS_BATCH, DS_SEQ, DS_SEQ, 56, 8, 128, True, 0, 0.0, 0,
                       "bfloat16", D256_BF16_TOL)
 DS_TRAIN_FWD_CASE = DS_TRAIN_ATTN_CASE[:11] + (3e-2,)
@@ -277,14 +275,24 @@ H2O_TRAIN_ATTN_CASE = (8, 2048, 2048, H2O_HEADS, H2O_KV, H2O_HEAD_DIM, True,
 LL_BATCH, LL_PROMPT, LL_GEN, LL_REQUESTS = 4, 8704, 32, 3
 LL_WINDOW, LL_HEADS, LL_KV, LL_HEAD_DIM = 8192, 40, 8, 128
 LL_SEGMENTS = ((("moe_local", "moe_nope"), 1),)
-LL_DRAM = 8 << 30     # ~6.03 GiB a server: ~12.95 GB at replication 2 over 4
+# ~6.03 GiB a server at replication 2 over 4 (12.95 GB), all in DRAM: at
+# 4 GiB the rest spills to the servers' SSD logs, whose fsyncs outlasted
+# the writes' 60 s acknowledgement on an H100 host's disk
+LL_DRAM = 8 << 30
 # the prefill of its moe_local layer (the window) and of its moe_nope layer
-# (causal, no window), bf16 within one bf16 ulp (D256_BF16_TOL's argument;
-# outputs of an 8192-key window are ~0.01)
+# (causal, no window): bf16, rtol D256_BF16_TOL (one bf16 ulp of the output)
+# and, per element, P_ROUND_SIGMAS standard deviations of the error the
+# kernel's bf16 P puts into it (``_p_rounding_atol``) in place of its atol:
+# outputs of an 8192-key window are ~0.01, and a kernel that lost the 64-key
+# tile at the window's edge stays within an atol of 8e-3 in over 99% of
+# them; a fixed atol small enough to catch it would fail the first rows,
+# whose few keys leave P's rounding unaveraged where their v cancel
 LL_PREFILL_CASE = (LL_BATCH, LL_PROMPT, LL_PROMPT, LL_HEADS, LL_KV,
                    LL_HEAD_DIM, True, LL_WINDOW, 0.0, 0, "bfloat16",
                    D256_BF16_TOL)
 LL_NOPE_CASE = LL_PREFILL_CASE[:7] + (0,) + LL_PREFILL_CASE[8:]
+P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE)
+P_ROUND_SIGMAS = 8
 # the training shapes, where two launches must be bit-identical
 TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE)
 
@@ -375,19 +383,31 @@ PORT_KERNEL = re.compile(
     r"\w*kernel\b")
 
 
-def device_kernels(fn):
+def device_kernels(fn, want, tag, observations=3):
     """``fn()`` and the sorted labels of the port's kernels it launched
-    (torch.profiler; fails if none)."""
+    (torch.profiler). The profiler at times drops a launch's records (a
+    flash backward's delta and dk/dv kernels once in phase 2, in one run
+    of several): while what it recorded is a strict part of ``want``, the
+    same deterministic call is profiled again, up to ``observations`` in
+    all. A kernel outside ``want`` is never a dropped record, and the
+    caller's check fails on it at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    names = sorted({_kernel_label(e.name) for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and PORT_KERNEL.search(e.name)})
-    check(bool(names), "the profiler recorded no kernel of the port")
+    out = None
+    for i in range(observations):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        out = result if out is None else out
+        names = sorted({_kernel_label(e.name) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and PORT_KERNEL.search(e.name)})
+        if not set(names) < set(want):
+            break
+        print(f"{tag}: observation {i + 1} of {observations}: the profiler "
+              f"recorded {names or 'no kernel'} of {want}", flush=True)
+    check(bool(names), f"{tag}: the profiler recorded no kernel of the port")
     return out, names
 
 
@@ -516,25 +536,49 @@ def check_rg_lru():
     return e
 
 
-def _within(what, out, plain, tol):
-    """|out - plain| <= tol + tol |plain| at every element, out finite and
-    of plain's dtype and shape; prints and returns the max error."""
+def _within(what, out, plain, tol, atol=None):
+    """|out - plain| <= atol + tol |plain| at every element, out finite and
+    of plain's dtype and shape; ``atol``: a tensor of plain's shape, or None
+    for atol = tol. Prints and returns the max error."""
     import torch
     check(out.dtype == plain.dtype and out.shape == plain.shape,
           f"{what}: {out.dtype} {tuple(out.shape)}, plain {plain.dtype} "
           f"{tuple(plain.shape)}")
     check(torch.isfinite(out.float()).all().item(), f"{what}: non-finite")
     diff = (out.float() - plain.float()).abs()
-    lim = tol + tol * plain.float().abs()
+    lim = (tol if atol is None else atol) + tol * plain.float().abs()
     worst = torch.argmax(diff / lim).item()
     e = diff.max().item()
+    bound = (f"atol = rtol = {tol:g}" if atol is None else
+             f"rtol {tol:g}, atol per element from {atol.min().item():.3e} "
+             f"to {atol.max().item():.3e}")
     print(f"{what}: max|kernel-plain| {e:.3e}; worst element "
           f"{diff.reshape(-1)[worst].item():.3e} against its bound "
-          f"{lim.reshape(-1)[worst].item():.3e} (atol = rtol = {tol:g})",
-          flush=True)
-    check(bool((diff <= lim).all()), f"{what}: error above atol = rtol = "
-          f"{tol:g} at element {worst}")
+          f"{lim.reshape(-1)[worst].item():.3e} ({bound})", flush=True)
+    check(bool((diff <= lim).all()), f"{what}: error above {bound} at "
+          f"element {worst}")
     return e
+
+
+def _p_rounding_atol(q, k, v, *, causal, window, q_offset=0):
+    """Per element of the attention output, ``P_ROUND_SIGMAS`` standard
+    deviations of the error that the bf16 flash kernel's rounding of P puts
+    into it. The kernel rounds each p_j = exp(s_j - m) (at most 1) to bf16
+    for its P V product: an error of at most 2^-8 p_j, spread evenly within
+    half an ulp, independent from key to key; the row sum l stays f32. So
+    o's error has a standard deviation of at most
+    2^-8 / sqrt(3) * sqrt(sum_j p_j^2 v_j^2) / sum_j p_j. The plain version
+    at 2 q (the scores doubled exactly) over v^2 gives
+    sum_j exp(2 (s_j - m)) v_j^2 / l2, with l2 = sum_j exp(2 (s_j - m))
+    among its statistics; no softcap (it does not double with q)."""
+    from repro_torch.kernels import ops
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              return_stats=True)
+    _, _, l = ops.flash_chunked(q, k, v, **kw)
+    sq, _, l2 = ops.flash_chunked(2 * q.float(), k.float(),
+                                  v.float().square(), **kw)
+    s2 = sq * (l2 / l.square())[..., None]
+    return P_ROUND_SIGMAS * 2.0 ** -8 / 3 ** 0.5 * s2.clamp_min(0).sqrt()
 
 
 def check_flash_bwd():
@@ -570,7 +614,8 @@ def check_flash_bwd():
         _within(f"{tag} m", m, pm, BWD_STATS_TOL)
         _within(f"{tag} l", l, pl, BWD_STATS_TOL)
         grads, ran = device_kernels(
-            lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts))
+            lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do, **opts),
+            bwd_kernels(case), tag)
         print(f"{tag}: kernels {', '.join(ran)}", flush=True)
         check(ran == bwd_kernels(case), f"flash_bwd {case}: ran {ran}, not "
               f"{bwd_kernels(case)}")
@@ -643,12 +688,15 @@ def check_kernels(gen):
                                  softcap=cap, q_offset=q_offset)
         plain = ops.flash_chunked(q, k, v, causal=causal, window=window,
                                   softcap=cap, q_offset=q_offset)
+        atol = (_p_rounding_atol(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+                if case in P_ROUND_CASES else None)
         torch.cuda.synchronize()
         # elementwise, as the reference's kernel tests hold it
-        e = _within(f"[flash] {case[:-1]}", out, plain, tol)
+        e = _within(f"[flash] {case[:-1]}", out, plain, tol, atol)
         if case in rows:
             err[rows[case]] = e
-        del q, k, v, out, plain
+        del q, k, v, out, plain, atol
 
     results, bwd_ran = check_flash_bwd(), {}
     for case, name in ((TRAIN_ATTN_CASE, "flash_attention_bwd"),
@@ -803,15 +851,22 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         mgr.save(STEP, state)
         t["save_s"] = time.perf_counter() - t0
         t["ckpt_bytes"] = mgr.metrics[STEP]["bytes"]
+        stores = [srv.store for srv in bb.servers.values()]
+        print(f"[bb] {cfg.name}: after the save, "
+              f"{sum(st.dram_used for st in stores)} bytes in the servers' "
+              f"DRAM, {sum(st.ssd_used for st in stores)} spilled to their "
+              f"SSD logs", flush=True)
         mgr.wait_flushes(timeout=600.0)
         t["flush_s"] = mgr.metrics[STEP].get("flush_s")
         check(mgr.metrics[STEP].get("flushed"), f"the checkpoint was not "
               f"durable on the PFS after {t['flush_s']} s")
+        host_memory(f"{cfg.name} save and flush")
         t0 = time.perf_counter()
         restored, step = mgr.restore(target)
         if device.type == "cuda":
             torch.cuda.synchronize()
         t["restore_s"] = time.perf_counter() - t0
+        host_memory(f"{cfg.name} restore")
         served = [serve_batch(cfg, model, restored["params"], p,
                               gen_tokens=gen_tokens) for p in prompts]
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -931,6 +986,7 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
         bb.kill_server("server/0")
         print("[main] killed server/0; restoring from its replicas into a "
               f"state drawn from seed {SEED + 1}", flush=True)
+        _batch_build_ms(cfg, batch, seq, half)
         state_b, hist_b2, mgr = train_loop(cfg, steps=steps, ckpt_every=0,
                                            bb_system=bb, restore=True,
                                            seed=SEED + 1, **kw)
@@ -986,6 +1042,29 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
     return t, launches, n_quant
 
 
+def _batch_build_ms(cfg, batch, seq, step, reps=3):
+    """Print and return the host ms the data stream takes to build its batch
+    at ``step`` (the pipeline ``train_loop`` makes), the slowest of
+    ``reps``, with the burst buffer's threads running. The reference's
+    ``load_state_dict`` waits 2 s for a running prefetch to stop; a batch
+    that takes longer lets the old stream's batch through
+    (``tests/test_torch_train.py::test_first_batches_after_a_restore``)."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    pipe = SyntheticLMPipeline(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        enc_seq=cfg.encoder_seq, enc_dim=cfg.encoder_dim)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pipe._batch_at(step)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[data] {cfg.name}: a batch of {batch} x {seq} tokens builds in "
+          f"{max(times):.3f} ms on the host (slowest of {reps}: "
+          f"{', '.join(f'{t:.3f}' for t in times)}; the reference's "
+          f"restore waits 2000 ms for a running prefetch)", flush=True)
+    return max(times)
+
+
 def _diagnose_restore(mgr, step, saved):
     """After a resume that diverged: restore the step's checkpoint once
     more, from the same burst buffer, and print which leaves differ from
@@ -1007,6 +1086,23 @@ def _diagnose_restore(mgr, step, saved):
     print(f"[diag] a second restore of the step-{step} checkpoint: "
           f"{len(bad)} leaves differ from the saved state {bad[:8]}; data "
           f"step {int(restored['data']['step'])}", flush=True)
+
+
+# glibc's mallopt parameter for the size from which malloc maps memory
+# of its own, which free hands back to the system at once
+M_MMAP_THRESHOLD = -3
+
+
+def cap_mmap_threshold():
+    """Serve every host allocation of 1 MiB or more (the burst buffer's
+    4 MiB chunks and their copies) from mmap. glibc's default threshold
+    rises to 32 MiB after the first such frees, and then freed chunks stay
+    in the heaps of the buffer's many threads, each with its own arena;
+    without this cap, phase 3g's 12.95 GB save and flush peaked at up to
+    92 GiB of an H100 host's 96."""
+    import ctypes
+    check(ctypes.CDLL("libc.so.6").mallopt(M_MMAP_THRESHOLD, 1 << 20) == 1,
+          "mallopt(M_MMAP_THRESHOLD) failed")
 
 
 def release_host_memory():
@@ -1116,7 +1212,6 @@ def _scope_device_ms(prof, scope: str):
 
 def time_serving(cfg, model, params, prompts, gen_tokens):
     import torch
-    from repro_torch.models import moe
     b, s = prompts.shape
     with torch.inference_mode():
         def run_prefill():
@@ -1143,23 +1238,9 @@ def time_serving(cfg, model, params, prompts, gen_tokens):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
 
-        if cfg.num_experts:
-            # the traced prefill runs each MoE FFN in a range of its own
-            apply_moe = moe.apply_moe
-
-            def scoped(*args):
-                with torch.profiler.record_function("moe"):
-                    return apply_moe(*args)
-
-            moe.apply_moe = scoped
-            try:
-                device_profile(f"{cfg.name} prefill (B={b}, S={s})",
-                               run_prefill, scope="moe")
-            finally:
-                moe.apply_moe = apply_moe
-        else:
-            device_profile(f"{cfg.name} prefill (B={b}, S={s})",
-                           run_prefill)
+        # models/moe.py::apply_moe runs each MoE FFN in a range "moe"
+        device_profile(f"{cfg.name} prefill (B={b}, S={s})", run_prefill,
+                       scope="moe" if cfg.num_experts else "")
         logits, cache = run_prefill()
         device_profile(f"{cfg.name} decode ({gen_tokens - 1} steps, B={b})",
                        lambda: run_decode(logits, cache))
@@ -1642,6 +1723,7 @@ def main():
         sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
                  f"from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    cap_mmap_threshold()
     t_start = time.perf_counter()
     device = torch.device("cuda")
 

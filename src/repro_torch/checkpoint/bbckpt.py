@@ -50,12 +50,11 @@ from repro_torch.checkpoint import serializer as ser
 from repro_torch.core import telemetry
 from repro_torch.core.system import BurstBufferSystem
 
-# how long a flush waits for its epoch to be durable on the PFS after the
-# system's own flush call has stopped waiting (30 s) while the servers go on
-# writing: a 12.95 GB checkpoint over four servers took 35 to 57 s to flush
-# on an H100 machine's host, and a restore begun while the servers still
-# wrote their domains found the manifest unreadable (their message loops
-# busy, its PFS copy not written yet)
+# how long a flush waits for its epoch to be durable on the PFS (the system's
+# own default is 30 s): a 12.95 GB checkpoint over four servers took 35 to
+# 57 s to flush on an H100 machine's host, and a restore begun while the
+# servers still wrote their domains found the manifest unreadable (their
+# message loops busy, its PFS copy not written yet)
 FLUSH_TIMEOUT_S = 600.0
 
 
@@ -155,9 +154,8 @@ class BBCheckpointManager:
 
     def _flush(self, epoch: int) -> bool:
         """Flush ``epoch`` and wait until it is durable on the PFS, at most
-        ``FLUSH_TIMEOUT_S`` past the system's own wait; True if it is."""
-        return self.system.flush(epoch) \
-            or self.system.manager.wait_flush(epoch, FLUSH_TIMEOUT_S)
+        ``FLUSH_TIMEOUT_S``; True if it is."""
+        return self.system.flush(epoch, timeout=FLUSH_TIMEOUT_S)
 
     def _retire(self, step: int):
         """Evict buffered epochs beyond the retention window (they are

@@ -66,7 +66,15 @@ def route(cfg, p, xt):
 
 
 def apply_moe(cfg, p, x):
-    """x: (B, S, d) -> (B, S, d)."""
+    """x: (B, S, d) -> (B, S, d). Runs in a profiler range named ``moe``, so
+    that a trace can tell the FFN's device time from the rest of a layer's
+    (``chip_smoke.py`` splits it into the expert products and the
+    dispatch); with no profiler on, it records nothing."""
+    with torch.profiler.record_function("moe"):
+        return _apply_moe(cfg, p, x)
+
+
+def _apply_moe(cfg, p, x):
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.top_k

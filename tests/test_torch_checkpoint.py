@@ -72,28 +72,31 @@ def test_restore_from_pfs_after_eviction():
 
 
 def test_flush_waits_until_the_epoch_is_durable():
-    """A flush that outlasts the system's own wait (here the system's flush
-    call begins the epoch and returns False at once, as after its 30 s):
-    the manager waits until every server has written its domain, records
-    ``flushed``, and the PFS holds both files byte for byte."""
+    """A flush waits ``FLUSH_TIMEOUT_S`` for its epoch, past the system's own
+    default of 30 s (a 12.95 GB checkpoint outlasts it): the manager asks
+    the system for that wait in both the async and the blocking flush,
+    records ``flushed``, and the PFS holds both files byte for byte."""
     import os
+    from repro_torch.checkpoint.bbckpt import FLUSH_TIMEOUT_S
     with _system() as bb:
-        real_flush = bb.flush
+        real_flush, waits = bb.flush, []
 
-        def impatient_flush(epoch):
-            real_flush(epoch, timeout=0.0)
-            return False
+        def flush(epoch, timeout=30.0):
+            waits.append(timeout)
+            return real_flush(epoch, timeout=timeout)
 
-        bb.flush = impatient_flush
+        bb.flush = flush
         mgr = BBCheckpointManager(bb, quantize=False)
         tree = _tree(3)
         mgr.save(4, tree)
         mgr.wait_flushes(timeout=60.0)
+        assert waits == [FLUSH_TIMEOUT_S] and FLUSH_TIMEOUT_S > 30.0
         assert mgr.metrics[4]["flushed"] is True
         assert bb.manager.flush_complete(4)
         for name in ("ckpt_00000004", "ckpt_00000004.manifest"):
             assert os.path.exists(os.path.join(bb.pfs_dir, name)), name
         mgr.save(5, tree, blocking_flush=True)
+        assert waits == [FLUSH_TIMEOUT_S] * 2
         assert mgr.metrics[5]["flushed"] is True
         restored, step = mgr.restore(_tree(99), step=4)
         _assert_equal(restored, tree)

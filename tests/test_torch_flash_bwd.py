@@ -323,3 +323,81 @@ def test_tuning_variants_change_the_committed_source():
         assert subs and all(old in src for old in subs), name
     assert len(tune.LO_PRODUCTS) == 6
     assert all(src.count(line) == 1 for line in tune.LO_PRODUCTS)
+
+
+def _smoke_module():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# what the profiler records in successive observations of one launch, by
+# demangled kernel name; the labels device_kernels must return (None: it
+# fails) and the number of observations
+_DELTA = "void (anonymous namespace)::flash_bwd_delta_kernel(float const*)"
+_DKDV = ("void (anonymous namespace)::flash_bwd_mma_dkdv_kernel<128>"
+         "(__nv_bfloat16 const*)")
+_DQ = ("void (anonymous namespace)::flash_bwd_mma_dq_kernel<128>"
+       "(__nv_bfloat16 const*)")
+_SIMT_DQ = ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16,"
+            " 128>(__nv_bfloat16 const*)")
+_WANT = ["flash_bwd_delta_kernel", "flash_bwd_mma_dkdv_kernel<128>",
+         "flash_bwd_mma_dq_kernel<128>"]
+PROFILER_OBSERVATIONS = {
+    "all at once": ([[_DELTA, _DKDV, _DQ]], _WANT, 1),
+    "records dropped once": ([[_DQ], [_DELTA, _DKDV, _DQ]], _WANT, 2),
+    "no record, then all": ([[], [_DELTA, _DKDV, _DQ]], _WANT, 2),
+    "always a part": ([[_DQ]] * 3, ["flash_bwd_mma_dq_kernel<128>"], 3),
+    "a wrong kernel": ([[_DELTA, _DKDV, _SIMT_DQ], [_DELTA, _DKDV, _DQ]],
+                       ["flash_bwd_delta_kernel", "flash_bwd_dq_kernel<bf16, "
+                        "128>", "flash_bwd_mma_dkdv_kernel<128>"], 1),
+    "never a port kernel": ([["aten::mm"]] * 3, None, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROFILER_OBSERVATIONS))
+def test_device_kernels_reobserves_only_dropped_records(case, monkeypatch):
+    """chip_smoke.py's ``device_kernels`` profiles a launch again only while
+    the profiler recorded a strict part of the expected kernels (a dropped
+    record), at most three observations, and returns the first call's
+    output; a kernel outside the expected set ends the observations (the
+    caller's equality check then fails), and no kernel of the port in any
+    observation fails."""
+    from types import SimpleNamespace
+    smoke = _smoke_module()
+    seen, want, calls = PROFILER_OBSERVATIONS[case]
+    observations = iter(seen)
+    cuda = torch.autograd.DeviceType.CUDA
+
+    class Profile:
+        def __init__(self, activities):
+            self.names = next(observations)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [SimpleNamespace(name=n, device_type=cuda)
+                    for n in self.names]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    launches = []
+
+    def launch():
+        launches.append(1)
+        return len(launches)
+
+    if want is None:
+        with pytest.raises(SystemExit):
+            smoke.device_kernels(launch, _WANT, "[test]")
+    else:
+        assert smoke.device_kernels(launch, _WANT, "[test]") == (1, want)
+    assert len(launches) == calls

@@ -1,6 +1,9 @@
 """The port's plain kernel versions against the reference's Pallas kernels
 (interpret mode) on the same numpy inputs. The CUDA kernels themselves are
 held against these plain versions on the card by ``chip_smoke.py``."""
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -159,3 +162,86 @@ def test_dequantize_bit_identical_to_pallas_kernel(out_dtype):
         exp = np.asarray(exp).view(np.int16)
         out = out.view(torch.int16)
     np.testing.assert_array_equal(out.numpy(), np.asarray(exp))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bf16_p_flash(q, k, v, *, window, q_offset, lost_tile=False):
+    """The bf16 flash kernel's arithmetic in plain torch: f32 scores and
+    row sum, P rounded to bf16 for P V, the output rounded to bf16.
+    ``lost_tile``: rows with a whole window drop their first 64 keys, as a
+    kernel that skipped the tile at the window's edge would."""
+    b, sq, h, d = q.shape
+    g = h // k.shape[2]
+    kk = k.float().repeat_interleave(g, 2)
+    vv = v.float().repeat_interleave(g, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, kk)
+    qpos = torch.arange(sq)[:, None] + q_offset
+    kpos = torch.arange(k.shape[1])[None, :]
+    keep = kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+        if lost_tile:
+            keep &= ~((qpos >= window) & (kpos < qpos - window + 65))
+    s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1)[..., None]
+    o = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vv) / l
+    return o.transpose(1, 2).bfloat16()
+
+
+# llama4's prefill heads (40 over 8 KV, D = 128) at fewer rows: the first
+# rows, where few keys leave P's rounding unaveraged, and the last rows of a
+# prompt past an 8192-key window (q_offset puts them there), with the window
+# and without (NoPE's causal attention)
+P_ROUND_CASES = [("first rows", 256, 256, 0, 0),
+                 ("window", 64, 8256, 8192, 8192),
+                 ("causal", 64, 8256, 0, 8192)]
+
+
+@pytest.mark.parametrize("name,sq,sk,window,q_offset", P_ROUND_CASES,
+                         ids=[c[0] for c in P_ROUND_CASES])
+def test_p_rounding_bound_admits_the_kernels_bf16_p(name, sq, sk, window,
+                                                     q_offset):
+    """chip_smoke.py's bound for the bf16 flash at llama4's prefill shape
+    (rtol one bf16 ulp, atol from the rounding of P) holds the kernel's own
+    arithmetic, emulated, against the plain version."""
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn(1, sq, 40, 128, generator=gen).bfloat16()
+    k = torch.randn(1, sk, 8, 128, generator=gen).bfloat16()
+    v = torch.randn(1, sk, 8, 128, generator=gen).bfloat16()
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    plain = ops.flash_chunked(q, k, v, **kw)
+    atol = smoke._p_rounding_atol(q, k, v, **kw)
+    out = _bf16_p_flash(q, k, v, window=window, q_offset=q_offset)
+    assert not torch.equal(out, plain)      # P's rounding shows
+    smoke._within(name, out, plain, smoke.D256_BF16_TOL, atol)
+
+
+def test_p_rounding_bound_catches_a_lost_window_tile():
+    """The same bound fails most elements of a kernel that drops the 64 keys
+    at the edge of an 8192-key window (they move by ~1.6e-3 rms); atol =
+    rtol = 8e-3 fails only the far tail of them."""
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn(1, 64, 40, 128, generator=gen).bfloat16()
+    k = torch.randn(1, 8256, 8, 128, generator=gen).bfloat16()
+    v = torch.randn(1, 8256, 8, 128, generator=gen).bfloat16()
+    kw = dict(causal=True, window=8192, q_offset=8192)
+    plain = ops.flash_chunked(q, k, v, **kw)
+    atol = smoke._p_rounding_atol(q, k, v, **kw)
+    out = _bf16_p_flash(q, k, v, window=8192, q_offset=8192, lost_tile=True)
+    tol = smoke.D256_BF16_TOL
+    diff = (out.float() - plain.float()).abs()
+    rel = tol * plain.float().abs()
+    assert (diff > atol + rel).float().mean() > 0.5
+    assert (diff > tol + rel).float().mean() < 0.01
+    with pytest.raises(SystemExit):
+        smoke._within("lost tile", out, plain, tol, atol)

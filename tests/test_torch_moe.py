@@ -127,6 +127,20 @@ def test_top_k_ties_pick_the_lower_expert():
     assert torch.equal(w, torch.full((5, 2), 0.5))
 
 
+def test_apply_moe_runs_in_a_profiler_range():
+    """Each MoE FFN runs in a profiler range "moe", which chip_smoke.py's
+    prefill profile reads to split the FFN's device time by op."""
+    from torch.profiler import ProfilerActivity, profile
+    _, _, cfg, p = _moe_pair("llama4")
+    x = torch.randn(2, 8, cfg.d_model)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        moe.apply_moe(cfg, p, x)
+    ranges = [e for e in prof.events() if e.name == "moe"]
+    assert len(ranges) == 1
+    inside = {c.name for c in ranges[0].cpu_children}
+    assert "aten::bmm" in inside or "aten::matmul" in inside, inside
+
+
 def _property_cfg(**kw):
     return dataclasses.replace(reduced(get_config(ARCH)), **kw)
 

@@ -112,10 +112,10 @@ def test_checkpoint_overlap_does_not_block_training():
         gate, flushing = threading.Event(), threading.Event()
         real_flush = bb.flush
 
-        def gated_flush(epoch):
+        def gated_flush(epoch, timeout=30.0):
             flushing.set()
             assert gate.wait(60.0)
-            return real_flush(epoch)
+            return real_flush(epoch, timeout=timeout)
 
         bb.flush = gated_flush
         try:
