@@ -37,7 +37,13 @@ Phases; any failure exits non-zero:
      at deepseek-coder-33b's training shape (8, 2048, 56, 8, 128); and the
      forward at llama4-scout-17b-a16e's prefill shape (4, 8704, 40, 8, 128)
      with its 8192-token window and without a window (NoPE), bf16 within
-     one bf16 ulp.
+     one bf16 ulp. Head dim 192 (deepseek-v3-671b's MLA prefill, V padded
+     from 128): causal, ragged Sk and q-offset cases in f32 (2e-5) and bf16
+     (3e-2), a small windowed bf16 case within one bf16 ulp, and the
+     prefill shape (4, 4096, 128, 128, 192) bf16, held per element like
+     llama4's, launched twice (bit-identical) and seen by the profiler in
+     ``flash_mma_kernel<192>``; the D = 256 backward also at
+     recurrentgemma-9b's attention over 8 x 2048 tokens.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -68,7 +74,7 @@ Phases; any failure exits non-zero:
      in every step; besides them only quantize / dequantize run, for the
      int8 checkpoint.
   3e. the fifth path, the training restart of slice 5: full-width
-     deepseek-coder-33b (2 of 62 layers, bf16 params, Adafactor with bf16
+     deepseek-coder-33b (1 of 62 layers, bf16 params, Adafactor with bf16
      momentum and f32 factored second moments) through the same restart;
      the flash forward and backward (head dim 128) run once a layer in
      every step, quantize / dequantize once for each int8 leaf.
@@ -86,6 +92,19 @@ Phases; any failure exits non-zero:
      FFN (sorted capacity dispatch, expert products in torch.bmm) in every
      prefill and decode step; a profile of the prefill splits the MoE FFN's
      device time into its products and its dispatch and combine.
+  3h. the eighth path, slice 8: deepseek-v3-671b at full width (MLA: 128
+     heads, q_lora 1536, kv_lora 512, q / k head dim 128 + 64, v 128; 256
+     experts at top-8 and a shared expert; vocab 129280). Part A: one
+     mla_dense layer with the MTP module (3.12 G params) restarts from a
+     params-only checkpoint through 4 servers of 8 GiB and serves 3
+     request batches of 4 prompts of 4096 tokens. Part B: one mla_dense
+     and one mla_moe layer without MTP (13.94 G params, 27.89 GB) are drawn
+     on the card from the seed (a restart through the buffer would hold
+     3 x 27.89 GB on the card and ~4.75 x on the host), serve the same
+     requests twice (equal tokens), and the absorbed decode is held
+     against the reconstructed path (``absorbed_decode_check``); the
+     flash forward at head dim 192 runs once an MLA layer in every
+     prefill.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
      (serving), step time, tokens/s, save / flush / restore-after-kill and
@@ -186,7 +205,13 @@ def _rg_lru_cases(tile_s):
 # ~4 s, and the run stays near half its time limit
 XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 4
 XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
-XL_DRAM = 2 << 30                     # a server's DRAM (~2.0 GB checkpoint)
+# a server's DRAM, as for the two training paths below: about four times
+# the server's share of the checkpoint at replication 2, so that the copies
+# the survivors re-replicate after the kill (``settle_after_kill``) land in
+# DRAM. At 2 to 4 GiB (under three times the share) they spilled to the
+# SSD logs, and on an H100 host the survivors then went on moving chunks
+# for minutes after the kill
+XL_DRAM = 4 << 30                     # ~0.92 GiB a server (~2.0 GB)
 # mLSTM forward: (shape (B, S, H, D), chunk, dtype, atol, rtol). The
 # reference's kernel tests (tests/test_kernels.py) with their tolerances in
 # f32 (the CUDA-core kernel); every bf16 case (the tensor-core kernel)
@@ -210,7 +235,7 @@ MLSTM_M_TOL = 1e-5
 
 # slice 4: starcoder2-3b training at full width, LAYERS of its 30 layers
 SC_BATCH, SC_SEQ, SC_STEPS = 8, 2048, 8
-SC_DRAM = 4 << 30     # a server's DRAM: 2 x ~3.4 GB at replication 2 over 4
+SC_DRAM = 8 << 30     # ~1.60 GiB a server: 2 x ~3.4 GB over 4 (XL_DRAM)
 # the flash backward against its plain version (elementwise,
 # |kernel - plain| <= tol + tol |plain|, on the same q, k, v, o, m, l, dO):
 # f32 at the reference's f32 kernel tolerance of 2e-5 (both sum in f32, in
@@ -240,10 +265,13 @@ BWD_EDGE_CASES = [
 ]
 
 # slice 5: deepseek-coder-33b training at full width, DS_LAYERS of its 62
-# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128
-DS_LAYERS = 2
+# layers, Adafactor; its attention: 56 heads / 8 kv at head dim 128. One
+# layer since slice 8 came: on an H100 host two layers took 169.7 to
+# 199.7 s of a run that then neared its limit, and their 6.12 GB
+# checkpoint's restore after the kill held up to 73.4 GiB of its 96
+DS_LAYERS = 1
 DS_BATCH, DS_SEQ, DS_STEPS = 8, 2048, 8
-DS_DRAM = 4 << 30     # ~3.05 GB a server: ~6.1 GB at replication 2 over 4
+DS_DRAM = 8 << 30     # ~1.86 GiB a server: 2 x ~4 GB over 4 (XL_DRAM)
 DS_TRAIN_ATTN_CASE = (DS_BATCH, DS_SEQ, DS_SEQ, 56, 8, 128, True, 0, 0.0, 0,
                       "bfloat16", D256_BF16_TOL)
 DS_TRAIN_FWD_CASE = DS_TRAIN_ATTN_CASE[:11] + (3e-2,)
@@ -291,10 +319,52 @@ LL_PREFILL_CASE = (LL_BATCH, LL_PROMPT, LL_PROMPT, LL_HEADS, LL_KV,
                    LL_HEAD_DIM, True, LL_WINDOW, 0.0, 0, "bfloat16",
                    D256_BF16_TOL)
 LL_NOPE_CASE = LL_PREFILL_CASE[:7] + (0,) + LL_PREFILL_CASE[8:]
-P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE)
 P_ROUND_SIGMAS = 8
+# slice 8: deepseek-v3-671b serving at full width through the MLA kinds; its
+# prefill runs the flash forward at q / k head dim 128 + 64 = 192 with V
+# zero-padded from 128, 128 heads each with its own k (the rope key
+# broadcast to every head)
+DS3_BATCH, DS3_PROMPT, DS3_GEN, DS3_REQUESTS = 4, 4096, 32, 3
+DS3_HEADS, DS3_HEAD_DIM = 128, 192
+# part A: one mla_dense layer (and the MTP module the checkpoint carries)
+# through the burst buffer; part B: one layer of each kind, no MTP, built
+# on the card (its 27.89 GB would need 3 x on the card and ~4.75 x on the
+# host to go through the buffer)
+DS3_SEGMENTS_A = ((("mla_dense",), 1),)
+DS3_SEGMENTS_B = ((("mla_dense",), 1), (("mla_moe",), 1))
+DS3_DRAM = 8 << 30    # ~1.45 GiB a server at replication 2 over 4 (6.25 GB)
+# head dim 192 in f32 (2e-5) and bf16 (the reference's 3e-2), MLA's heads
+# (as many kv heads as q heads): a causal case, a ragged Sk without a mask
+# (Sq != Sk, 200 keys ragged in the 64- and 32-key tiles) and a q offset
+# with Sq < Sk; a small bf16 case whose window of 8 keeps the outputs near
+# 1, within one bf16 ulp (D256_BF16_TOL); the prefill shape within rtol
+# D256_BF16_TOL and the bf16 P's per-element atol (``_p_rounding_atol``):
+# outputs that average up to 4096 values are small
+D192_CASES = [case for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2))
+              for case in (
+                  (2, 128, 128, 4, 4, DS3_HEAD_DIM, True, 0, 0.0, 0, dtype,
+                   tol),
+                  (1, 96, 200, 4, 4, DS3_HEAD_DIM, False, 0, 0.0, 0, dtype,
+                   tol),
+                  (1, 72, 200, 4, 4, DS3_HEAD_DIM, True, 0, 0.0, 128, dtype,
+                   tol))] + [
+    (2, 96, 96, 4, 1, DS3_HEAD_DIM, True, 8, 0.0, 0, "bfloat16",
+     D256_BF16_TOL)]
+DS3_PREFILL_CASE = (DS3_BATCH, DS3_PROMPT, DS3_PROMPT, DS3_HEADS, DS3_HEADS,
+                    DS3_HEAD_DIM, True, 0, 0.0, 0, "bfloat16", D256_BF16_TOL)
+P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE)
+# the absorbed decode against the reconstructed path, whole-model logits,
+# relative L2 error a row (``absorbed_decode_check``): bf16 at full width,
+# 8 bf16 unit roundoffs (2^-8 each); PERF.md, slice 8, derives it
+MLA_DECODE_TOL = 8 * 2.0 ** -8
+# the D = 256 backward (the CUDA-core pair) at recurrentgemma-9b's attention
+# layer over 8 x 2048 tokens (its 2048 window: causal at this S); no main
+# path trains at head dim 256
+RG_TRAIN_ATTN_CASE = (8, 2048, 2048, RG_HEADS, 1, RG_HEAD_DIM, True,
+                      RG_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
 # the training shapes, where two launches must be bit-identical
-TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE)
+TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE,
+                RG_TRAIN_ATTN_CASE)
 
 BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
                           else D256_BF16_TOL,)
@@ -663,6 +733,24 @@ def _mlstm_inputs(case, gen):
     return mk(), mk(), mk(), log_f, log_i
 
 
+def check_repeat_launch(case, q, k, v, out):
+    """A second launch of the bf16 forward at ``case`` on the same q, k, v,
+    profiled: bit-identical to ``out``, through ``flash_mma_kernel<D>``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    *_, causal, window, cap, q_offset, _dtype, _tol = case
+    want = [f"flash_mma_kernel<{case[5]}>"]
+    again, ran = device_kernels(
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cap, q_offset=q_offset),
+        want, f"[flash] {case[:-2]}")
+    same = torch.equal(out, again)
+    print(f"[flash] {case[:-2]}: kernels {', '.join(ran)}; two launches "
+          f"bit-identical: {same}", flush=True)
+    check(ran == want, f"flash {case}: ran {ran}, not {want}")
+    check(same, f"flash {case}: two launches differ")
+
+
 def check_kernels(gen):
     """Each kernel against its plain version on the same card inputs.
     Returns the max error at the main paths' shapes, by kernel row, and the
@@ -680,8 +768,10 @@ def check_kernels(gen):
             DS_TRAIN_FWD_CASE: "flash_attention_train_dsc",
             H2O_PREFILL_CASE: "flash_attention_d80",
             LL_PREFILL_CASE: "flash_attention_llama4",
-            LL_NOPE_CASE: "flash_attention_llama4_nope"}
-    for case in ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES + list(rows):
+            LL_NOPE_CASE: "flash_attention_llama4_nope",
+            DS3_PREFILL_CASE: "flash_attention_mla"}
+    for case in (ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES
+                 + D192_CASES + list(rows)):
         *_, causal, window, cap, q_offset, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -696,12 +786,15 @@ def check_kernels(gen):
         e = _within(f"[flash] {case[:-1]}", out, plain, tol, atol)
         if case in rows:
             err[rows[case]] = e
+        if case == DS3_PREFILL_CASE:
+            check_repeat_launch(case, q, k, v, out)
         del q, k, v, out, plain, atol
 
     results, bwd_ran = check_flash_bwd(), {}
     for case, name in ((TRAIN_ATTN_CASE, "flash_attention_bwd"),
                        (DS_TRAIN_ATTN_CASE, "flash_attention_bwd_dsc"),
-                       (H2O_TRAIN_ATTN_CASE, "flash_attention_bwd_d80")):
+                       (H2O_TRAIN_ATTN_CASE, "flash_attention_bwd_d80"),
+                       (RG_TRAIN_ATTN_CASE, "flash_attention_bwd_d256")):
         err[name], bwd_ran[name] = results[case]
 
     err["rg_lru"] = check_rg_lru()
@@ -806,6 +899,7 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamW
 
+    host_step(f"{cfg.name}: init and serve the un-saved params")
     model = build_model(cfg)
     params = model.init(SEED, device=device)
     gen = torch.Generator(device=device)
@@ -847,8 +941,10 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=dram_capacity)
     with BurstBufferSystem(bbcfg) as bb:
         mgr = BBCheckpointManager(bb, quantize=True)
+        host_step(f"{cfg.name}: save")
         t0 = time.perf_counter()
         mgr.save(STEP, state)
+        host_step(f"{cfg.name}: flush")
         t["save_s"] = time.perf_counter() - t0
         t["ckpt_bytes"] = mgr.metrics[STEP]["bytes"]
         stores = [srv.store for srv in bb.servers.values()]
@@ -861,12 +957,14 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         check(mgr.metrics[STEP].get("flushed"), f"the checkpoint was not "
               f"durable on the PFS after {t['flush_s']} s")
         host_memory(f"{cfg.name} save and flush")
+        host_step(f"{cfg.name}: restore")
         t0 = time.perf_counter()
         restored, step = mgr.restore(target)
         if device.type == "cuda":
             torch.cuda.synchronize()
         t["restore_s"] = time.perf_counter() - t0
         host_memory(f"{cfg.name} restore")
+        host_step(f"{cfg.name}: serve the restored params")
         served = [serve_batch(cfg, model, restored["params"], p,
                               gen_tokens=gen_tokens) for p in prompts]
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -973,9 +1071,11 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
     kw = dict(global_batch=batch, seq_len=seq, log_every=1, device=device)
     bbcfg = BBConfig(num_servers=4, num_clients=4,
                      dram_capacity=dram_capacity)
+    host_step(f"{cfg.name}: run A")
     state_a, hist_a, _ = train_loop(cfg, steps=steps, ckpt_every=0,
                                     seed=SEED, **kw)
     with BurstBufferSystem(bbcfg) as bb:
+        host_step(f"{cfg.name}: run B to its save, and the flush")
         saved_b, hist_b, mgr = train_loop(cfg, steps=half,
                                           ckpt_every=half - 1, bb_system=bb,
                                           quantize_ckpt=False, seed=SEED,
@@ -984,9 +1084,17 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
         t["ckpt_bytes"] = mgr.metrics[half - 1]["bytes"]
         t["flush_s"] = mgr.metrics[half - 1].get("flush_s")
         bb.kill_server("server/0")
-        print("[main] killed server/0; restoring from its replicas into a "
-              f"state drawn from seed {SEED + 1}", flush=True)
+        host_step(f"{cfg.name}: failure handling after the kill")
+        settle_s = t["settle_s"] = settle_after_kill(bb, "server/0")
+        handled = (f"the buffer handled it in {settle_s:.1f}s (the manager "
+                   f"counts it dead, the survivors' queues empty for "
+                   f"{SETTLE_QUIET_S:.0f}s)" if settle_s is not None else
+                   f"the buffer was still busy after {SETTLE_TIMEOUT_S:.0f}s")
+        print(f"[main] killed server/0; {handled}; restoring from its "
+              f"replicas into a state drawn from seed {SEED + 1}",
+              flush=True)
         _batch_build_ms(cfg, batch, seq, half)
+        host_step(f"{cfg.name}: restore after the kill, run B resumed")
         state_b, hist_b2, mgr = train_loop(cfg, steps=steps, ckpt_every=0,
                                            bb_system=bb, restore=True,
                                            seed=SEED + 1, **kw)
@@ -1022,12 +1130,15 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
     target = map_tree(torch.zeros_like, state)
     with BurstBufferSystem(bbcfg) as bb:
         mgr = BBCheckpointManager(bb, quantize=True)
+        host_step(f"{cfg.name}: int8 save")
         t0 = time.perf_counter()
         mgr.save(steps, state)
         t["qsave_s"] = time.perf_counter() - t0
         t["qckpt_bytes"] = mgr.metrics[steps]["bytes"]
+        host_step(f"{cfg.name}: int8 flush")
         mgr.wait_flushes(timeout=600.0)
         t["qflush_s"] = mgr.metrics[steps].get("flush_s")
+        host_step(f"{cfg.name}: int8 restore")
         t0 = time.perf_counter()
         restored, step = mgr.restore(target)
         torch.cuda.synchronize()
@@ -1040,6 +1151,39 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
           f"{t['qckpt_bytes']} bytes; params bit-exact, int8 leaves within "
           f"{worst:.3f} of their bound", flush=True)
     return t, launches, n_quant
+
+
+# how long the survivors' message queues must stay empty after a kill
+# before the restore starts, and the longest a restore waits for that
+SETTLE_QUIET_S = 2.0
+SETTLE_TIMEOUT_S = 30.0
+
+
+def settle_after_kill(bb, dead: str, timeout_s: float = SETTLE_TIMEOUT_S):
+    """Wait until the burst buffer has handled the loss of ``dead``: the
+    manager counts it dead and every surviving server's queue has stayed
+    empty for ``SETTLE_QUIET_S``, as a restarted job starts once the
+    failure is handled (the reference's restart demo waits a second).
+    Each survivor re-replicates every key it holds when it learns of the
+    death, up to twice, so the copies in flight come to several times the
+    checkpoint; a restore that ran among them held up to 80 GiB of an H100
+    host's 96 in phase 3e. Returns the seconds waited, or None if the
+    buffer was still busy after ``timeout_s`` (the restore then starts all
+    the same, as it did before this wait)."""
+    t0 = time.perf_counter()
+    survivors = [srv for name, srv in bb.servers.items() if name != dead]
+    quiet_since = None
+    while time.perf_counter() - t0 < timeout_s:
+        now = time.perf_counter()
+        if dead in bb.manager.dead and all(srv.ep.inbox.empty()
+                                           for srv in survivors):
+            quiet_since = quiet_since or now
+            if now - quiet_since >= SETTLE_QUIET_S:
+                return now - t0
+        else:
+            quiet_since = None
+        time.sleep(0.05)
+    return None
 
 
 def _batch_build_ms(cfg, batch, seq, step, reps=3):
@@ -1118,17 +1262,56 @@ def release_host_memory():
     ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
+def _rss_kb() -> int:
+    """This process's resident host memory in kB (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1])
+    return 0
+
+
+# the step the host is in, and the highest resident memory the sampler saw
+# since the last ``host_memory`` report, with the step it was seen in
+HOST_WATCH = {"step": "start", "peak_kb": 0, "peak_step": "start"}
+
+
+def host_step(step: str):
+    """Name the step the host is in for the resident-memory sampler."""
+    HOST_WATCH["step"] = step
+
+
+def start_host_watch(interval_s: float = 0.02):
+    """Sample this process's resident memory every ``interval_s`` in a
+    daemon thread, keeping the peak of each reporting window and the step
+    it fell in: ``ru_maxrss`` gives only the run's one peak, and a save,
+    flush or restore of the burst buffer holds its most for seconds."""
+    import threading
+
+    def watch():
+        while True:
+            kb = _rss_kb()
+            if kb > HOST_WATCH["peak_kb"]:
+                HOST_WATCH["peak_kb"] = kb
+                HOST_WATCH["peak_step"] = HOST_WATCH["step"]
+            time.sleep(interval_s)
+
+    threading.Thread(target=watch, name="host-watch", daemon=True).start()
+
+
 def host_memory(what: str):
     """``release_host_memory`` and print this process's resident host
-    memory, now and at its peak so far."""
+    memory now, its highest since the last report with the step it was
+    reached in (``host_step``), and its peak so far."""
     import resource
     release_host_memory()
-    rss = next((line.split(":", 1)[1].strip()
-                for line in open("/proc/self/status")
-                if line.startswith("VmRSS")), "not measured")
+    window_kb, window_step = HOST_WATCH["peak_kb"], HOST_WATCH["peak_step"]
+    HOST_WATCH["peak_kb"] = 0
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss   # kB
     print(f"[host] after {what} at {time.perf_counter() - T_START:.1f}s: "
-          f"resident memory {rss} (peak so far {peak} kB)", flush=True)
+          f"resident memory {_rss_kb()} kB; highest since the last report "
+          f"{window_kb} kB, in {window_step} (peak so far {peak} kB)",
+          flush=True)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1140,11 +1323,16 @@ def device_profile(what: str, fn, scope: str = ""):
     traced run is separate from the timed ones: tracing slows the host.
     ``scope``: the name of ``record_function`` ranges inside ``fn``; the
     device time of the kernels launched inside them is printed by the op
-    that launched each (``_scope_device_ms``)."""
+    that launched each (``_scope_device_ms``). Without a scope only the
+    device is traced: the CPU ops are what makes a long trace slow to read
+    (an xlstm-350m train step on an H100 host: 103 s traced and read with
+    them, 33 s without, the same device busy time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if scope:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1212,6 +1400,7 @@ def _scope_device_ms(prof, scope: str):
 
 def time_serving(cfg, model, params, prompts, gen_tokens):
     import torch
+    host_step(f"{cfg.name}: timing prefill and decode")
     b, s = prompts.shape
     with torch.inference_mode():
         def run_prefill():
@@ -1239,8 +1428,10 @@ def time_serving(cfg, model, params, prompts, gen_tokens):
         decode_s = time.perf_counter() - t0
 
         # models/moe.py::apply_moe runs each MoE FFN in a range "moe"
+        has_moe = any(k.startswith("moe") or k.endswith("_moe")
+                      for unit, _ in cfg.segments for k in unit)
         device_profile(f"{cfg.name} prefill (B={b}, S={s})", run_prefill,
-                       scope="moe" if cfg.num_experts else "")
+                       scope="moe" if has_moe else "")
         logits, cache = run_prefill()
         device_profile(f"{cfg.name} decode ({gen_tokens - 1} steps, B={b})",
                        lambda: run_decode(logits, cache))
@@ -1266,12 +1457,14 @@ def _causal_pairs(case):
                        for i in range(s))
 
 
-def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20):
+def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
+               graph_calls=None):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
     the (q, k) pairs the causal and window masks leave; ``stats``: the
     kernel also writes the row statistics (the training path's forward),
     m and l counted in its bytes; ``plain_iters``: the plain version's
-    timed calls (after one warm-up when fewer than 20). ``ms`` and
+    timed calls (after one warm-up when fewer than 20); ``graph_calls``:
+    the calls of each CUDA graph (by the pairs' count if None). ``ms`` and
     ``library_ms`` are CUDA-event times of back-to-back calls from Python,
     which include whatever of each call's host cost the device does not
     hide; ``graph_ms`` and ``library_graph_ms`` are device times of one
@@ -1299,7 +1492,8 @@ def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20):
             qt, kt, vt, is_causal=True, enable_gqa=True)
     kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
                                         return_stats=stats)
-    calls = 20 if pairs > 1e8 else 200   # graphs of ~10 to ~50 ms
+    # graphs of ~10 to ~50 ms
+    calls = graph_calls or (20 if pairs > 1e8 else 200)
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1454,6 +1648,7 @@ def kernel_line(gen, launches, err, bwd_ran):
     xl, sct = launches["xlstm-350m"], launches["starcoder2-3b train"]
     ds, h2o = launches["deepseek-coder-33b"], launches["h2o-danube-1.8b"]
     ll = launches["llama4-scout-17b-a16e"]
+    ds3 = launches["deepseek-v3-671b"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
                            sc["flash_attention"], err["flash_attention"]),
@@ -1528,12 +1723,20 @@ def kernel_line(gen, launches, err, bwd_ran):
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "graph_ms", "library_graph_ms")})
         rows.append(row)
-    # the backward at the training shapes; no main path trains h2o-danube,
-    # so its D = 80 row has no launches there
+        # slice 8: deepseek-v3-671b's MLA prefill at head dim 192 (V padded
+        # as the path pads it), 128 heads; launches: parts A and B; graphs
+        # of 5 calls (each call's output is 805 MB)
+        rows.append(_flash_row("flash_attention_mla", DS3_PREFILL_CASE, gen,
+                               ds3["flash_attention"],
+                               err["flash_attention_mla"], plain_iters=3,
+                               graph_calls=5))
+    # the backward at the training shapes; no main path trains h2o-danube
+    # or at head dim 256, so the D = 80 and D = 256 rows have no launches
     for name, case, runs in (
             ("flash_attention_bwd", TRAIN_ATTN_CASE, sct),
             ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds),
-            ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o)):
+            ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o),
+            ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rg)):
         rows.append(_flash_bwd_row(name, case, gen,
                                    runs["flash_attention_bwd"], err[name],
                                    bwd_ran[name]))
@@ -1574,7 +1777,8 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
           f"unquantized; {2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server "
           f"at replication 2 over 4 servers of {dram_capacity / 2**30:.0f} "
           f"GiB), flush {t['flush_s']}s (off the critical path), restore "
-          f"after the kill {t['restore_s']:.3f}s", flush=True)
+          f"after the kill {t['restore_s']:.3f}s (the buffer handled the "
+          f"kill in {t['settle_s']}s before it)", flush=True)
     print(f"[numbers] {cfg.name}: int8 save {t['qsave_s']:.3f}s "
           f"({t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), int8 "
           f"flush {t['qflush_s']}s, int8 restore {t['qrestore_s']:.3f}s",
@@ -1600,6 +1804,7 @@ def time_training(cfg, device, batch, seq):
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.train import batch_to, build
 
+    host_step(f"{cfg.name}: timing the train step")
     _, optimizer, state, step_fn = build(cfg, seed=SEED, device=device)
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
                                global_batch=batch)
@@ -1711,6 +1916,216 @@ def llama4_path(device):
     return launches
 
 
+def absorbed_decode_check(cfg, model, params, prompts, tol):
+    """The absorbed MLA decode held against the reconstructed path: the
+    logits of ``decode_step`` at position S, fed each row's first greedy
+    token, against the last-position logits of a ``prefill`` over those
+    S + 1 tokens (the flash kernel over K and V rebuilt from the latent),
+    as the relative L2 error of each row over the real vocabulary, at most
+    ``tol``. A row whose new token the two runs route to other experts, or
+    which the prefill drops past an expert's capacity (a decode step of B
+    tokens never drops), is a different function there, not an error of
+    the attention: such rows are named and left out, and at least one row
+    must be left. Runs two prefills and one decode step. Returns
+    {row: relative error} of the rows held."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.runtime.serve_step import greedy_token
+
+    b, s = prompts.shape
+    routes = []
+    route = moe.route
+
+    def recording_route(cfg_, p, xt):
+        topw, topi = route(cfg_, p, xt)
+        routes.append(topi)
+        return topw, topi
+
+    def last_tokens(topi, n_seq):
+        """(ids, kept) of each row's last token: (B, k) each."""
+        t = topi.shape[0]
+        flat = topi.reshape(-1)
+        cap = moe.capacity(cfg, t)
+        rows = torch.arange(b, device=topi.device) * n_seq + n_seq - 1
+        idx = rows[:, None] * cfg.top_k + torch.arange(
+            cfg.top_k, device=topi.device)
+        # rank within expert, as the dispatch's stable sort orders them
+        before = torch.arange(flat.numel(), device=topi.device)[None, None] \
+            < idx[..., None]
+        rank = ((flat[None, None] == flat[idx][..., None]) & before).sum(-1)
+        return flat[idx], rank < cap
+
+    moe.route = recording_route
+    try:
+        with torch.inference_mode():
+            cache = model.init_cache(b, s + 1, device=prompts.device)
+            logits, cache = model.prefill(params, cache, prompts)
+            tok = greedy_token(cfg, logits).to(prompts.dtype)
+            routes.clear()
+            dec, _ = model.decode_step(params, cache, tok, s)
+            dec_routes = [last_tokens(r, 1) for r in routes]
+            routes.clear()
+            full = torch.cat([prompts, tok], dim=1)
+            ref, _ = model.prefill(
+                params, model.init_cache(b, s + 1, device=prompts.device),
+                full)
+            pre_routes = [last_tokens(r, s + 1) for r in routes]
+    finally:
+        moe.route = route
+    check(len(dec_routes) == len(pre_routes), "absorbed decode check: "
+          f"{len(dec_routes)} routed layers in decode, {len(pre_routes)} "
+          f"in prefill")
+    rerouted = torch.zeros(b, dtype=torch.bool, device=prompts.device)
+    dropped = torch.zeros_like(rerouted)
+    for (di, dk), (pi, pk) in zip(dec_routes, pre_routes):
+        rerouted |= (di != pi).any(dim=-1)
+        dropped |= (dk != pk).any(dim=-1)
+    v = cfg.vocab_size
+    diff = (dec[:, 0, :v].float() - ref[:, 0, :v].float()).norm(dim=-1)
+    rel = (diff / ref[:, 0, :v].float().norm(dim=-1)).tolist()
+    other = {r: ("routed otherwise" if rerouted[r] else "")
+             + (" and " if rerouted[r] and dropped[r] else "")
+             + ("dropped in the prefill" if dropped[r] else "")
+             for r in range(b) if rerouted[r] or dropped[r]}
+    held = {r: rel[r] for r in range(b) if r not in other}
+    print(f"[mla] absorbed decode at position {s} against a prefill over "
+          f"{s + 1} tokens, relative L2 error of the logits a row: "
+          + ", ".join(f"row {r} {e:.3e}" for r, e in enumerate(rel))
+          + f" (tol {tol:.3e}); rows left out: "
+          + (", ".join(f"row {r} ({why})" for r, why in other.items())
+             or "none"), flush=True)
+    check(bool(held), "absorbed decode check: every row's new token was "
+          "routed otherwise or dropped in the prefill")
+    worst = max(held.values())
+    check(worst <= tol, f"absorbed decode check: relative error {worst:.3e} "
+          f"above {tol:.3e}")
+    return held
+
+
+def deepseek_v3_path(device):
+    """Phase 3h, slice 8: deepseek-v3-671b at full width through the MLA
+    kinds. Part A: one ``mla_dense`` layer (with the MTP module the
+    checkpoint carries) restarts from a params-only checkpoint through the
+    burst buffer and serves. Part B: one ``mla_dense`` and one ``mla_moe``
+    layer (top-8 of 256 experts and a shared expert), no MTP, built on the
+    card from the seed, serves the same requests twice (equal tokens) and
+    holds the absorbed decode against the reconstructed path. Prints both
+    parts' numbers and returns the launch counts of parts A and B summed."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.registry import build_model
+
+    full = get_config("deepseek-v3-671b")
+    check((full.d_model, full.num_heads, full.q_lora_rank, full.kv_lora_rank,
+           full.qk_nope_head_dim, full.qk_rope_head_dim, full.v_head_dim)
+          == (7168, DS3_HEADS, 1536, 512, 128, 64, 128)
+          and full.qk_nope_head_dim + full.qk_rope_head_dim == DS3_HEAD_DIM
+          and (full.num_experts, full.top_k, full.d_ff_expert,
+               full.num_shared_experts, full.d_ff_shared, full.d_ff,
+               full.vocab_size) == (256, 8, 2048, 1, 2048, 18432, 129280)
+          and full.param_dtype == "bfloat16", "deepseek-v3-671b shapes")
+    print(f"[main] {full.name} full width (d_model {full.d_model}, "
+          f"{full.num_heads} heads, MLA q_lora {full.q_lora_rank}, kv_lora "
+          f"{full.kv_lora_rank}, qk_nope {full.qk_nope_head_dim}, qk_rope "
+          f"{full.qk_rope_head_dim}, v {full.v_head_dim}; {full.num_experts}"
+          f" experts at top-{full.top_k} of d_ff {full.d_ff_expert}, "
+          f"capacity factor {full.capacity_factor}, "
+          f"{full.num_shared_experts} shared of d_ff {full.d_ff_shared}; "
+          f"dense d_ff {full.d_ff}; vocab {full.vocab_size}; "
+          f"{full.param_dtype}); full config: segments {full.segments}, MTP "
+          f"depth {full.mtp_depth}, {full.param_count()} params", flush=True)
+
+    # part A: the restart through the burst buffer
+    cfg = dataclasses.replace(full, segments=DS3_SEGMENTS_A)
+    print(f"[main] {full.name} part A, reduced: segments {full.segments} -> "
+          f"{cfg.segments}, num_layers {full.num_layers} -> "
+          f"{cfg.num_layers}, MTP depth {cfg.mtp_depth} kept (the "
+          f"checkpoint carries the module; serving never reads it); "
+          f"{cfg.param_count()} params; prompt {DS3_PROMPT}; params-only "
+          f"checkpoint over 4 servers of {DS3_DRAM / 2**30:.0f} GiB DRAM",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t, launches_a, (model, params, prompts, n_quant) = serving_restart(
+        cfg, device, batch=DS3_BATCH, prompt=DS3_PROMPT, gen_tokens=DS3_GEN,
+        requests=DS3_REQUESTS, dram_capacity=DS3_DRAM, train_state=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": _layers(cfg, "mla_dense") * DS3_REQUESTS,
+            "flash_attention_bwd": 0, "rg_lru": 0, "mlstm": 0,
+            "quantize_blockwise": n_quant, "dequantize_blockwise": n_quant}
+    print(f"[main] launches in save -> restore -> serve: {launches_a} "
+          f"(expected {want})", flush=True)
+    check(launches_a == want and launches_a["flash_attention"] == 3,
+          f"launch counts {launches_a} != {want}")
+    print(f"[numbers] {cfg.name} part A: peak device memory {peak_gb:.2f} GB "
+          f"over save -> restore -> serve (the un-saved params, the zero "
+          f"target and the restored params: "
+          f"{3 * 2 * cfg.param_count() / 1e9:.2f} GB); checkpoint "
+          f"{t['ckpt_bytes']} bytes, "
+          f"{2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server", flush=True)
+    serving_numbers(cfg, t, model, params, prompts, DS3_GEN)
+    del model, params, prompts
+    host_memory(f"{full.name} part A")
+
+    # part B: the MoE layer at full width, on the card
+    cfg = dataclasses.replace(full, segments=DS3_SEGMENTS_B, mtp_depth=0)
+    n = cfg.param_count()
+    print(f"[main] {full.name} part B, reduced: segments {full.segments} -> "
+          f"{cfg.segments}, num_layers {full.num_layers} -> "
+          f"{cfg.num_layers}, MTP depth {full.mtp_depth} -> 0 (training "
+          f"only: prefill and decode never read it); {n} params, "
+          f"{2 * n / 1e9:.2f} GB, drawn on the card from seed {SEED}, not "
+          f"through the burst buffer: a restart holds the un-saved params, "
+          f"the zero target and the restored params on the card "
+          f"({3 * 2 * n / 1e9:.1f} GB of its 80) and about 4.75 x the "
+          f"checkpoint on the host ({4.75 * 2 * n / 2**30:.0f} GiB of its "
+          f"96)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    host_step(f"{cfg.name} part B: init, serve twice, absorbed decode check")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    prompts = [torch.randint(1, cfg.vocab_size, (DS3_BATCH, DS3_PROMPT),
+                             generator=gen, device=device)
+               for _ in range(DS3_REQUESTS)]
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    runs = [[serve_batch(cfg, model, params, p, gen_tokens=DS3_GEN)
+             for p in prompts] for _ in range(2)]
+    for r, (a, b) in enumerate(zip(*runs)):
+        check(a.shape == (DS3_BATCH, DS3_GEN), f"request {r}: {a.shape}")
+        check(torch.equal(a, b), f"request {r}: two runs served other "
+              f"tokens")
+    absorbed_decode_check(cfg, model, params, prompts[0], MLA_DECODE_TOL)
+    launches_b = {fn.__name__: fn.launches for fn in kernels}
+    # each prefill launches the flash forward once an MLA layer: 2 serving
+    # runs of the requests and the check's two prefills
+    layers = _layers(cfg, "mla_dense") + _layers(cfg, "mla_moe")
+    want = {name: 0 for name in launches_b}
+    want["flash_attention"] = layers * (2 * DS3_REQUESTS + 2)
+    print(f"[main] launches in serve x 2 -> absorbed decode check: "
+          f"{launches_b} (expected {want}); {DS3_REQUESTS} x {DS3_BATCH} "
+          f"requests served {DS3_GEN} tokens each, equal in both runs",
+          flush=True)
+    check(launches_b == want and launches_b["flash_attention"] == 16,
+          f"launch counts {launches_b} != {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms, decode_tps = time_serving(cfg, model, params, prompts[0],
+                                          DS3_GEN)
+    print(f"[numbers] {cfg.name} part B: params drawn on the card in "
+          f"{init_s:.3f}s, peak device memory {peak_gb:.2f} GB over serve x "
+          f"2 -> check ({2 * n / 1e9:.2f} GB of params), prefill "
+          f"{prefill_ms:.2f} ms (B={DS3_BATCH}, S={DS3_PROMPT}), decode "
+          f"{decode_tps:.1f} tok/s (B={DS3_BATCH})", flush=True)
+    del model, params, prompts, runs
+    return {name: launches_a[name] + launches_b[name] for name in launches_a}
+
+
 def main():
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts; the training path runs twice and is compared bit for bit
@@ -1724,10 +2139,12 @@ def main():
                  f"from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     cap_mmap_threshold()
+    start_host_watch()
     t_start = time.perf_counter()
     device = torch.device("cuda")
 
     environment()
+    host_step("phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     err, bwd_ran = check_kernels(gen)
@@ -1890,14 +2307,21 @@ def main():
     ll_launches = llama4_path(device)
     host_memory("phase 3g")
 
+    # phase 3h: slice 8's path, deepseek-v3-671b at full width
+    ds3_launches = deepseek_v3_path(device)
+    host_memory("phase 3h")
+
+    host_step("the kernels line")
     rows = kernel_line(gen, {"starcoder2-3b": launches,
                              "recurrentgemma-9b": rg_launches,
                              "xlstm-350m": xl_launches,
                              "starcoder2-3b train": sc_launches,
                              "deepseek-coder-33b": ds_launches,
                              "h2o-danube-1.8b": h2o_launches,
-                             "llama4-scout-17b-a16e": ll_launches}, err,
+                             "llama4-scout-17b-a16e": ll_launches,
+                             "deepseek-v3-671b": ds3_launches}, err,
                        bwd_ran)
+    host_memory("the kernels line")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -94,9 +94,7 @@ class BBCheckpointManager:
         mode = io_mode or self.io_mode
         t0 = self._clock()
         policy = ser.default_quant_policy if self.quantize else None
-        payloads, manifest = ser.serialize_tree(state, policy)
         fname = f"ckpt_{step:08d}"
-        offset_of = {m["name"]: m["offset"] for m in manifest["leaves"]}
 
         # checkpoint-lane writes: the highest QoS priority — a
         # concurrent background stream can no longer queue ahead of the
@@ -107,13 +105,20 @@ class BBCheckpointManager:
         with telemetry.span("ckpt.save", "checkpoint", step=step):
             f = fs.open(fname, "w", policy=mode,
                         chunk_bytes=self.chunk_bytes, lane="checkpoint")
-            for name, data in payloads.items():
+            # each leaf is serialized as the one before it is written: the
+            # host holds one leaf's payload, not the whole checkpoint's as
+            # the reference does (the chunks and their offsets are the
+            # same, since the reference also writes leaf by leaf)
+            manifest: dict = {}
+            for _, data, meta in ser.serialize_leaves(state, policy,
+                                                      manifest):
                 # an empty payload (Adafactor's zero-size sentinels) writes
                 # nothing: a zero-length pwrite still puts an empty chunk
                 # under the key of the chunk at its offset, which is the
                 # next leaf's first chunk (pread of 0 bytes reads nothing)
                 if data:
-                    f.pwrite(data, offset_of[name])
+                    f.pwrite(data, meta["offset"])
+                del data
             mf = fs.open(f"{fname}.manifest", "w", policy=mode,
                          lane="checkpoint")
             mf.write(ser.manifest_bytes(manifest))
@@ -196,7 +201,8 @@ class BBCheckpointManager:
         time. Staging is best-effort — if the manager is busy or a server
         dies mid-stage, the handle's read fallback chain still returns
         byte-exact data — and the payload handle keeps ``prefetch`` on so
-        any unstaged tail is read ahead of the loop."""
+        any unstaged tail is read ahead of the loop. Each leaf's payload is
+        read as its tensor is rebuilt (``_LeafReads``), not all first."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no checkpoint found")
@@ -213,11 +219,24 @@ class BBCheckpointManager:
 
             with fs.open(f"{fname}.manifest", "r") as mf:
                 manifest = ser.manifest_from_bytes(mf.read())
-            payloads: Dict[str, bytes] = {}
             with fs.open(fname, "r", prefetch=True) as f:
-                for meta in manifest["leaves"]:
-                    payloads[meta["name"]] = f.pread(meta["offset"],
-                                                     meta["nbytes"])
-            out = ser.deserialize_tree(target_state, payloads, manifest)
+                out = ser.deserialize_tree(target_state,
+                                           _LeafReads(f, manifest), manifest)
         self._m_restore.observe(self._clock() - t0)
         return out, step
+
+
+class _LeafReads:
+    """``payloads[name]`` for ``serializer.deserialize_tree``, read from the
+    open checkpoint file when the leaf is rebuilt. The host then holds one
+    leaf's payload at a time; the reference reads every payload before it
+    rebuilds any, which for a 12.95 GB checkpoint is 12.95 GB more host
+    memory on top of the buffer's own copies."""
+
+    def __init__(self, f, manifest: dict):
+        self._f = f
+        self._metas = {m["name"]: m for m in manifest["leaves"]}
+
+    def __getitem__(self, name: str) -> bytes:
+        meta = self._metas[name]
+        return self._f.pread(meta["offset"], meta["nbytes"])

@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import math
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -151,21 +151,34 @@ def deserialize_leaf(payload: bytes, meta: dict, device="cpu"):
     return x[:math.prod(shape)].reshape(shape).to(dtype)
 
 
+def serialize_leaves(tree, quant_policy: Optional[Callable] = None,
+                     manifest: Optional[dict] = None
+                     ) -> Iterator[Tuple[str, bytes, dict]]:
+    """Yields (key, payload, metadata) leaf by leaf, in manifest order, each
+    payload made only when the one before it has been taken, so a caller
+    that writes each away holds one leaf's bytes on the host at a time.
+    ``manifest`` (a dict) is filled as ``serialize_tree`` returns it."""
+    quant_policy = quant_policy or (lambda p, l: False)
+    manifest = {} if manifest is None else manifest
+    manifest.update(leaves=[], treedef=None)
+    offset = 0
+    for name, leaf in tree_paths(tree):
+        data, meta = serialize_leaf(leaf, quant_policy(name, leaf))
+        meta.update(name=name, offset=offset, nbytes=len(data))
+        manifest["leaves"].append(meta)
+        offset += len(data)
+        yield name, data, meta
+        del data
+    manifest["total_bytes"] = offset
+
+
 def serialize_tree(tree, quant_policy: Optional[Callable] = None
                    ) -> Tuple[Dict[str, bytes], dict]:
     """Returns ({key: payload}, manifest). Manifest records order, offsets
     (for the logical checkpoint file), and per-leaf metadata."""
-    quant_policy = quant_policy or (lambda p, l: False)
-    payloads: Dict[str, bytes] = {}
-    manifest = {"leaves": [], "treedef": None}
-    offset = 0
-    for name, leaf in tree_paths(tree):
-        data, meta = serialize_leaf(leaf, quant_policy(name, leaf))
-        payloads[name] = data
-        meta.update(name=name, offset=offset, nbytes=len(data))
-        manifest["leaves"].append(meta)
-        offset += len(data)
-    manifest["total_bytes"] = offset
+    manifest: dict = {}
+    payloads = {name: data for name, data, _ in
+                serialize_leaves(tree, quant_policy, manifest)}
     return payloads, manifest
 
 

@@ -19,6 +19,8 @@ Layer kinds the port builds so far (see models/transformer.py registry):
   moe         global self-attention + MoE FFN (routed experts + optional shared)
   moe_local   sliding-window self-attention + MoE FFN
   moe_nope    global self-attention without RoPE (NoPE) + MoE FFN
+  mla_dense   multi-head latent attention (DeepSeek-V3) + dense MLP
+  mla_moe     multi-head latent attention + MoE FFN
 """
 from __future__ import annotations
 
@@ -133,7 +135,7 @@ def _load_all():
     import importlib
     for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b",
                 "xlstm_350m", "deepseek_coder_33b", "h2o_danube_1_8b",
-                "llama4_scout_17b_a16e"):
+                "llama4_scout_17b_a16e", "deepseek_v3_671b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -23,14 +23,17 @@
 //    which the reference's f32 tolerance of 2e-5 rules out; no full-width
 //    path runs f32 attention.
 //
-// What bounds it on this card, at the two serving prefill shapes:
+// What bounds it on this card, at three serving prefill shapes:
 //  * starcoder2-3b (B=4, S=512, H=24, KV=2, D=128, causal): q/k/v/o are
 //    27.3 MB (8.1 us at 3.35 TB/s) and the two products over the causal
 //    (q, k) pairs 6.46 GFLOP (6.5 us at 989 TFLOP/s): bytes, by a little.
 //  * recurrentgemma-9b (B=4, S=3072, H=16, KV=1, D=256, causal, window
 //    2048): 275 GFLOP over the 268.5 M visible pairs (0.278 ms) against
 //    214 MB (0.064 ms): operations.
-// Both are far from the CUDA cores' f32 rate (67 TFLOP/s, and about 17
+//  * deepseek-v3-671b (B=4, S=4096, H=KV=128, D=192, causal): 3.299 TFLOP
+//    over the 4.30 G causal pairs (3.336 ms) against 3.22 GB (0.961 ms):
+//    operations. A third of the P V product multiplies V's zero padding.
+// All are far from the CUDA cores' f32 rate (67 TFLOP/s, and about 17
 // reached out of shared memory), so the bf16 kernel's design is about
 // feeding the tensor cores:
 //  * Tiles. One block of 4 warps owns one (b, q head, 64-row q tile); each
@@ -68,14 +71,22 @@
 //      D = 128: BK = 32, (64 + 2 x 2 x 32) rows x 272 bytes = 52,224 bytes,
 //               3 blocks (12 warps) an SM (launch bounds cap registers at
 //               168); accumulator 64 f32 a thread, S 16.
+//      D = 192: BK = 32, (64 + 2 x 2 x 32) rows x 400 bytes = 76,800 bytes,
+//               2 blocks (8 warps) an SM; accumulator 96 f32 a thread, S
+//               16; rows of 200 bf16 are 25 16-byte units (odd, as at
+//               D = 80), 12 sixteen-wide k steps of S = Q K^T.
+//               deepseek-v3-671b's MLA prefill: q / k head dim 128 + 64,
+//               V zero-padded from 128 by the caller.
 //      D = 256: BK = 32, (64 + 2 x 2 x 32) rows x 528 bytes = 101,376 bytes,
 //               2 blocks (8 warps) an SM; accumulator 128 f32 a thread, S
-//               16, and Q fragments reloaded from shared memory at every k
-//               step instead of held (they would take 64 more registers).
+//               16.
 //      D = 16 .. 80: BK = 64, 15,360 to 56,320 bytes, 2 blocks an SM
 //               (D = 80, h2o-danube-1.8b's head dim: rows of 88 bf16, 11
 //               16-byte units, and 5 k steps of S = Q K^T, odd as at
 //               D = 48; accumulator 40 f32 a thread, S 32).
+//    Every instance reloads its Q fragments from shared memory at every k
+//    step instead of holding them (at D = 192 and 256 they would take 48
+//    and 64 more registers a thread).
 //    Registers and spills per instance: `[ptxas flash_attention]` in
 //    chip_smoke.py's output (PERF.md keeps them). At D = 128, BK = 32 with
 //    3 blocks an SM beat BK = 64 with 2 on the card: S = 512 gives short
@@ -88,7 +99,8 @@
 // (j < D / 16) of the accumulator. Q (pre-scaled by d^-0.5 in f32), K and V
 // tiles are staged as f32 with a row pitch of D + 1 words (214,016 bytes at
 // D = 256, one block an SM), P goes through shared memory, loads are
-// synchronous.
+// synchronous. At D = 192: 4 x (64 x 193 + 2 x 64 x 193 + 64 x 65) =
+// 164,864 bytes, one block an SM.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -649,6 +661,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
     FLASH_CASE(64)
     FLASH_CASE(80)
     FLASH_CASE(128)
+    FLASH_CASE(192)
     FLASH_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;

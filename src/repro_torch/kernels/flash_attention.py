@@ -4,9 +4,12 @@ kernel ``repro/kernels/flash_attention.py::flash_attention_pallas``) and
 ``csrc/flash_attention_bwd.cu`` (the backward, the port of the reference's
 plain-jnp ``repro/kernels/ops.py::_flash_bwd``).
 
-Head dims: ``HEAD_DIMS`` (16, 32, 48, 64, 80, 128, 256), each a compiled
-instance of every kernel below; 80 is h2o-danube-1.8b's (2560 / 32), 128
-starcoder2-3b's and deepseek-coder-33b's, 256 the gemma family's.
+Head dims: ``HEAD_DIMS`` (16, 32, 48, 64, 80, 128, 192, 256), each a
+compiled instance of both forward kernels; 80 is h2o-danube-1.8b's
+(2560 / 32), 128 starcoder2-3b's and deepseek-coder-33b's, 192
+deepseek-v3-671b's MLA prefill (q/k head dim 128 + 64, V zero-padded from
+128), 256 the gemma family's. The backward kernels take ``BWD_HEAD_DIMS``,
+the same without 192: MLA trains nowhere in the port yet.
 
 Forward: bfloat16 inputs go to the tensor-core kernel (``mma.sync``, bf16
 products with f32 accumulation), float32 inputs to the f32 kernel on the
@@ -41,7 +44,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 48, 64, 80, 128, 256)
+HEAD_DIMS = (16, 32, 48, 64, 80, 128, 192, 256)
+BWD_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d != 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fwd = None
 _bwd = None
@@ -71,11 +75,11 @@ def _bwd_kernel():
     return _bwd
 
 
-def _check(what, q, k, v, *, like_q=(), stats=()):
-    """Shapes, dtypes, head dim and contiguity of q (B, Sq, H, D), k / v
-    (B, Sk, KV, D), the tensors ``like_q`` (q's shape and dtype) and the
-    f32 row statistics ``stats`` (B, Sq, H); bf16 q, k, v and ``like_q``
-    16-byte aligned; then one CUDA device."""
+def _check(what, q, k, v, *, like_q=(), stats=(), head_dims=HEAD_DIMS):
+    """Shapes, dtypes, head dim (one of ``head_dims``) and contiguity of q
+    (B, Sq, H, D), k / v (B, Sk, KV, D), the tensors ``like_q`` (q's shape
+    and dtype) and the f32 row statistics ``stats`` (B, Sq, H); bf16 q, k,
+    v and ``like_q`` 16-byte aligned; then one CUDA device."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     tensors = (q, k, v, *like_q)
@@ -84,8 +88,11 @@ def _check(what, q, k, v, *, like_q=(), stats=()):
         raise ValueError(f"{what}: dtypes {[t.dtype for t in tensors]}, "
                          f"stats {[t.dtype for t in stats]}; needs all "
                          f"float32 or all bfloat16, stats float32")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        missing = (f"; head dim {d} has a forward kernel but no backward "
+                   f"yet" if d in HEAD_DIMS else "")
+        raise ValueError(f"{what}: head dim {d} not in {head_dims}"
+                         f"{missing}")
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape or h % kvh \
             or any(t.shape != q.shape for t in like_q) \
             or any(t.shape != (b, sq, h) for t in stats):
@@ -149,13 +156,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, return_stats=False):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) on one CUDA device, contiguous,
     all float32 or all bfloat16 (bf16: 16-byte aligned) -> (B, Sq, H, D) in
-    q's dtype; differentiable in q, k, v. ``return_stats`` (no gradient):
+    q's dtype; differentiable in q, k, v at ``BWD_HEAD_DIMS`` (a head dim
+    without a backward kernel raises under autograd before the device, not
+    at the backward). ``return_stats`` (no gradient):
     (o, m, l) with the f32 row statistics m, l of shape (B, Sq, H)."""
-    _check("flash_attention kernel", q, k, v)
-    opts = dict(causal=causal, window=window, softcap=softcap,
-                q_offset=q_offset)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
+    # a gradient needs the backward kernel's head dims
+    _check("flash_attention kernel", q, k, v,
+           head_dims=BWD_HEAD_DIMS if grad else HEAD_DIMS)
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset)
     if grad and return_stats:
         raise ValueError("flash_attention kernel: return_stats is for "
                          "inputs that need no gradient")
@@ -173,7 +184,7 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal=True, window=0,
     gradient ``do``; all contiguous on one CUDA device (bf16: 16-byte
     aligned)."""
     _check("flash_attention_bwd kernel", q, k, v, like_q=(o, do),
-           stats=(m, l))
+           stats=(m, l), head_dims=BWD_HEAD_DIMS)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     fn = _bwd_kernel()

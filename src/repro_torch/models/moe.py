@@ -17,10 +17,14 @@ No step reads a value back to the host.
 The combine does not scatter-add (``index_add_`` on CUDA sums in atomic
 order, which differs from run to run): the (T*k, d) contributions are
 un-sorted by the inverse permutation and summed over each token's k
-slots, an order fixed by the shapes. The sum of two terms is commutative,
-so at top-1 and top-2 the result equals the reference's scatter-add bit
-for bit. The expert-parallel ``shard_map`` path of the reference
-(``moe_sharded.py``) is not ported.
+slots in top-k rank order, an order fixed by the shapes. The reference
+scatter-adds them (``.at[stok].add``) in expert-sorted order. The sum of
+two terms is commutative, so at top-1 and top-2 the result equals the
+reference's bit for bit; at top-8 (deepseek-v3-671b) the two orders agree
+only within f32 rounding (``tests/test_torch_moe.py::
+test_apply_moe_matches_reference``, case "top8": routing ids equal, then
+outputs within 1e-5). The expert-parallel ``shard_map`` path of the
+reference (``moe_sharded.py``) is not ported.
 """
 from __future__ import annotations
 

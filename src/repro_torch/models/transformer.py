@@ -3,12 +3,17 @@
 Counterpart of ``repro/models/transformer.py`` for the layer kinds ``attn``
 and ``attn_local`` (global and sliding-window self-attention with a dense
 MLP), ``moe``, ``moe_local`` and ``moe_nope`` (global, sliding-window and
-NoPE global self-attention with a mixture-of-experts FFN), ``rglru`` (the
-Griffin recurrent block with a dense MLP), and ``mlstm`` and ``slstm`` (the
-xLSTM blocks). A model
+NoPE global self-attention with a mixture-of-experts FFN), ``mla_dense``
+and ``mla_moe`` (DeepSeek-V3's multi-head latent attention with a dense or
+MoE FFN), ``rglru`` (the Griffin recurrent block with a dense MLP), and
+``mlstm`` and ``slstm`` (the xLSTM blocks). A model
 = embedding -> [segments] -> final norm -> unembedding, where each segment
 repeats a fixed ``unit`` of layer kinds; the reference scans over the
-stacked layer dimension, the port loops over it in Python.
+stacked layer dimension, the port loops over it in Python. A config with
+``mtp_depth`` also carries DeepSeek-V3's multi-token-prediction module
+(``mtp``) in its tree, as the reference's does; only the reference's
+``forward_with_mtp`` (training) reads it, and the port does not train
+with it yet, so serving never touches it.
 
 Caches are updated in place: ``prefill`` and ``decode_step`` write into the
 cache tensors they are given and return the same cache.
@@ -22,10 +27,11 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import (apply_norm, apply_rope,
+from repro_torch.models.common import (P, apply_norm, apply_rope,
                                        cfg_param_dtype, embed_descs,
                                        embed_tokens, init_tree, map_tree,
                                        norm_descs, stack_descs, unembed)
@@ -45,16 +51,28 @@ class Kind:
 # attention kinds (self-attn + dense or MoE FFN)
 
 
+def _ffn_descs(cfg, attn_descs, ffn):
+    d = {"norm1": norm_descs(cfg), "attn": attn_descs,
+         "norm2": norm_descs(cfg)}
+    if ffn == "dense":
+        d["mlp"] = mlp_descs(cfg)
+    else:
+        d["moe"] = moe_mod.moe_descs(cfg)
+    return d
+
+
+def _ffn(cfg, p, x, ffn):
+    """The residual FFN half of a block: x + FFN(norm2(x))."""
+    h = apply_norm(cfg, p["norm2"], x)
+    h = apply_mlp(cfg, p["mlp"], h) if ffn == "dense" \
+        else moe_mod.apply_moe(cfg, p["moe"], h)
+    return x + h
+
+
 def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
                     ffn="dense"):
     def descs(cfg):
-        d = {"norm1": norm_descs(cfg), "attn": attn.attn_descs(cfg),
-             "norm2": norm_descs(cfg)}
-        if ffn == "dense":
-            d["mlp"] = mlp_descs(cfg)
-        else:
-            d["moe"] = moe_mod.moe_descs(cfg)
-        return d
+        return _ffn_descs(cfg, attn.attn_descs(cfg), ffn)
 
     def _window(cfg):
         return getattr(cfg, window_attr) if window_attr else 0
@@ -66,17 +84,11 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
         # NoPE layers attend without rotary embeddings
         return cfg if rope else dataclasses.replace(cfg, pos_embed="none")
 
-    def _ffn(cfg, p, x):
-        h = apply_norm(cfg, p["norm2"], x)
-        h = apply_mlp(cfg, p["mlp"], h) if ffn == "dense" \
-            else moe_mod.apply_moe(cfg, p["moe"], h)
-        return x + h
-
     def apply(cfg, p, x, ext):
         h = apply_norm(cfg, p["norm1"], x)
         h = attn.self_attention(_acfg(cfg), p["attn"], h, ext["positions"],
                                 window=_window(cfg), rope_theta=_theta(cfg))
-        return _ffn(cfg, p, x + h)
+        return _ffn(cfg, p, x + h, ffn)
 
     def init_cache(cfg, batch, max_seq, device):
         return {"kv": attn.init_self_cache(cfg, batch, max_seq,
@@ -89,7 +101,7 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
                                            cache["kv"], ext["pos"],
                                            window=_window(cfg),
                                            rope_theta=_theta(cfg))
-        return _ffn(cfg, p, x + h), {"kv": kv}
+        return _ffn(cfg, p, x + h, ffn), {"kv": kv}
 
     def prefill(cfg, p, x, cache, ext):
         h = apply_norm(cfg, p["norm1"], x)
@@ -99,7 +111,7 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
             k = apply_rope(k, ext["positions"], _theta(cfg))
         o = kops.flash_attention(q, k, v, causal=True, window=_window(cfg),
                                  softcap=cfg.logit_softcap)
-        x = _ffn(cfg, p, x + attn._out_proj(cfg, p["attn"], o))
+        x = _ffn(cfg, p, x + attn._out_proj(cfg, p["attn"], o), ffn)
         # write the (possibly windowed) tail of k/v into the ring cache
         kc, vc = cache["kv"]["k"], cache["kv"]["v"]
         buf, s = kc.shape[1], k.shape[1]
@@ -111,6 +123,42 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
         else:
             kc[:, :s] = k
             vc[:, :s] = v
+        return x, cache
+
+    return Kind(descs, apply, init_cache, decode, prefill)
+
+
+# ---------------------------------------------------------------------------
+# MLA kinds (multi-head latent attention + dense or MoE FFN)
+
+
+def _make_mla_kind(ffn):
+    def descs(cfg):
+        return _ffn_descs(cfg, mla_mod.mla_descs(cfg), ffn)
+
+    def apply(cfg, p, x, ext):
+        h = apply_norm(cfg, p["norm1"], x)
+        h = mla_mod.mla_attention(cfg, p["attn"], h, ext["positions"])
+        return _ffn(cfg, p, x + h, ffn)
+
+    def init_cache(cfg, batch, max_seq, device):
+        return {"mla": mla_mod.init_mla_cache(cfg, batch, max_seq, device)}
+
+    def decode(cfg, p, x, cache, ext):
+        h = apply_norm(cfg, p["norm1"], x)
+        h, _ = mla_mod.decode_mla_attention(cfg, p["attn"], h, cache["mla"],
+                                            ext["pos"])
+        return _ffn(cfg, p, x + h, ffn), cache
+
+    def prefill(cfg, p, x, cache, ext):
+        h = apply_norm(cfg, p["norm1"], x)
+        h, c_kv, k_rope = mla_mod.mla_attend(cfg, p["attn"], h,
+                                             ext["positions"])
+        x = _ffn(cfg, p, x + h, ffn)
+        # the latent cache from position 0
+        s = c_kv.shape[1]
+        cache["mla"]["c_kv"][:, :s] = c_kv
+        cache["mla"]["k_rope"][:, :s] = k_rope
         return x, cache
 
     return Kind(descs, apply, init_cache, decode, prefill)
@@ -174,6 +222,8 @@ KINDS: Dict[str, Kind] = {
     # llama4's chunked local layers use the global rope_theta
     "moe_local": _make_attn_kind(window_attr="window_size", ffn="moe"),
     "moe_nope": _make_attn_kind(rope=False, ffn="moe"),
+    "mla_dense": _make_mla_kind("dense"),
+    "mla_moe": _make_mla_kind("moe"),
     "rglru": Kind(_rglru_descs, _rglru_apply, _rglru_cache, _rglru_decode,
                   _rglru_prefill),
     # prefill runs the decode block over the whole prompt, as for rglru
@@ -194,16 +244,29 @@ KINDS: Dict[str, Kind] = {
 
 def model_descs(cfg):
     kinds = {k for unit, _ in cfg.segments for k in unit}
-    if kinds - set(KINDS) or cfg.mtp_depth or cfg.num_encoder_layers \
-            or cfg.cross_source:
+    if kinds - set(KINDS) or cfg.num_encoder_layers or cfg.cross_source:
         raise NotImplementedError(
             f"{cfg.name}: the port builds layer kinds {sorted(KINDS)} "
-            f"without MTP or encoders; config has {sorted(kinds)}")
+            f"without cross attention or encoders; config has "
+            f"{sorted(kinds)}")
     d: Dict[str, Any] = {"embed": embed_descs(cfg), "segments": {}}
     for i, (unit, reps) in enumerate(cfg.segments):
         seg = {str(j): KINDS[k].descs(cfg) for j, k in enumerate(unit)}
         d["segments"][f"seg{i}"] = stack_descs(seg, reps)
     d["final_norm"] = norm_descs(cfg)
+    if cfg.mtp_depth:
+        # DeepSeek-V3's multi-token-prediction module (depth 1): one more
+        # layer of the trunk's last kind, fed by a projection of
+        # [norm(h_t) ; norm(emb(t+1))]; shares the embedding / unembedding
+        last_kind = cfg.segments[-1][0][-1]
+        d["mtp"] = {
+            "h_norm": norm_descs(cfg),
+            "e_norm": norm_descs(cfg),
+            "proj": P((2 * cfg.d_model, cfg.d_model), (None, "embed"),
+                      "fanin"),
+            "layer": stack_descs({"0": KINDS[last_kind].descs(cfg)}, 1),
+            "final_norm": norm_descs(cfg),
+        }
     return d
 
 

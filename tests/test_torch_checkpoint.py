@@ -3,9 +3,14 @@ as the reference's manager tests in ``tests/test_checkpoint.py`` hold
 ``repro/checkpoint/bbckpt.py``: a save / restore round trip, the latest of
 several saves with retention evicting the oldest, and a restore of an
 evicted checkpoint from the PFS (staged back into the buffer); and, the
-port's own, a flush that waits until its epoch is durable. Torch trees
-on the CPU; the same code runs on the card in ``chip_smoke.py``'s
-restarts."""
+port's own, a flush that waits until its epoch is durable, a save that
+writes each leaf as it serializes it, a restore that reads each leaf as it
+rebuilds it, and ``chip_smoke.py``'s wait for the buffer to handle a
+server's loss before a restore. Torch trees on the CPU; the same code runs
+on the card in ``chip_smoke.py``'s restarts."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -100,3 +105,96 @@ def test_flush_waits_until_the_epoch_is_durable():
         assert mgr.metrics[5]["flushed"] is True
         restored, step = mgr.restore(_tree(99), step=4)
         _assert_equal(restored, tree)
+
+
+def test_restore_reads_each_leaf_as_it_rebuilds_it(monkeypatch):
+    """The restore holds one leaf's payload at a time: each leaf's read is
+    followed by that leaf's rebuild before the next read (the reference
+    reads every payload first, which for a 12.95 GB checkpoint is as much
+    host memory again)."""
+    from repro_torch.checkpoint import bbckpt
+    events = []
+    read = bbckpt._LeafReads.__getitem__
+    rebuild = ser.deserialize_leaf
+
+    def logged_read(self, name):
+        events.append(("read", name))
+        return read(self, name)
+
+    def logged_rebuild(payload, meta, device="cpu"):
+        events.append(("rebuild", meta["name"]))
+        return rebuild(payload, meta, device=device)
+
+    monkeypatch.setattr(bbckpt._LeafReads, "__getitem__", logged_read)
+    monkeypatch.setattr(ser, "deserialize_leaf", logged_rebuild)
+    with _system() as bb:
+        mgr = BBCheckpointManager(bb, quantize=False)
+        tree = _tree(2)
+        mgr.save(3, tree, blocking_flush=True)
+        restored, _ = mgr.restore(_tree(0))
+    _assert_equal(restored, tree)
+    names = [n for n, _ in ser.tree_paths(tree)]
+    assert events == [(kind, n) for n in names
+                      for kind in ("read", "rebuild")]
+
+
+def test_save_writes_each_leaf_as_it_serializes_it(monkeypatch):
+    """The save holds one leaf's payload at a time: each leaf is written
+    before the next is serialized (the reference serializes the whole tree
+    first), at the offsets and with the manifest ``serialize_tree`` gives,
+    and the checkpoint restores bit for bit."""
+    from repro_torch.core import filesystem
+    events = []
+    serialize = ser.serialize_leaf
+    pwrite = filesystem.BBFile.pwrite
+
+    def logged_serialize(leaf, quantize):
+        data, meta = serialize(leaf, quantize)
+        events.append(("serialize", len(data)))
+        return data, meta
+
+    def logged_pwrite(self, data, offset):
+        if self.path == "ckpt_00000006":      # not the manifest's file
+            events.append(("write", offset))
+        return pwrite(self, data, offset)
+
+    tree = _tree(4)
+    _, manifest = ser.serialize_tree(tree)
+    monkeypatch.setattr(ser, "serialize_leaf", logged_serialize)
+    monkeypatch.setattr(filesystem.BBFile, "pwrite", logged_pwrite)
+    with _system() as bb:
+        mgr = BBCheckpointManager(bb, quantize=False)
+        mgr.save(6, tree, blocking_flush=True)
+        with bb.fs().open("ckpt_00000006.manifest", "r") as mf:
+            saved = ser.manifest_from_bytes(mf.read())
+        restored, _ = mgr.restore(_tree(0))
+    _assert_equal(restored, tree)
+    assert saved == manifest
+    assert events == [e for m in manifest["leaves"] for e in
+                      (("serialize", m["nbytes"]), ("write", m["offset"]))]
+
+
+def test_settle_after_kill_waits_for_the_failure_to_be_handled():
+    """``chip_smoke.settle_after_kill`` returns once the manager counts the
+    killed server dead and the survivors' queues have stayed empty (their
+    re-replication absorbed); the restore that follows reads the checkpoint
+    back bit for bit from the replicas."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    with BurstBufferSystem(BBConfig(num_servers=4, num_clients=4,
+                                    dram_capacity=64 << 20,
+                                    stabilize_interval=0.1)) as bb:
+        mgr = BBCheckpointManager(bb, quantize=False)
+        tree = _tree(5)
+        mgr.save(2, tree, blocking_flush=True)
+        bb.kill_server("server/0")
+        waited = chip_smoke.settle_after_kill(bb, "server/0")
+        assert waited is not None and waited >= chip_smoke.SETTLE_QUIET_S
+        assert "server/0" in bb.manager.dead
+        assert all(srv.ep.inbox.empty() for name, srv in bb.servers.items()
+                   if name != "server/0")
+        restored, step = BBCheckpointManager(bb).restore(_tree(0))
+    assert step == 2
+    _assert_equal(restored, tree)

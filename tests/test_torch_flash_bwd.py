@@ -190,6 +190,14 @@ def _refusals():
         ("bwd head dim 24", lambda *a: bwd(
             *a, o=z(1, 8, 4, 24), m=st, l=st, do=z(1, 8, 4, 24)),
          (z(1, 8, 4, 24), z(1, 8, 2, 24), z(1, 8, 2, 24)), "head dim"),
+        # the MLA prefill's head dim has a forward kernel and no backward
+        ("bwd head dim 192", lambda *a: bwd(
+            *a, o=z(1, 8, 4, 192), m=st, l=st, do=z(1, 8, 4, 192)),
+         (z(1, 8, 4, 192), z(1, 8, 2, 192), z(1, 8, 2, 192)),
+         "head dim 192 has a forward kernel but no backward"),
+        ("fwd under autograd head dim 192", fwd,
+         tuple(z(1, 8, h, 192).requires_grad_(True) for h in (4, 2, 2)),
+         "no backward"),
         ("fwd groups", fwd, (q, z(1, 8, 3, 16), z(1, 8, 3, 16)), "shapes"),
         ("fwd strided", fwd, (z(1, 4, 8, 16).transpose(1, 2), kv, kv),
          "contiguous"),

@@ -30,9 +30,12 @@ def test_import_loads_no_jax_and_no_reference_module():
         "repro_torch.kernels.mlstm, repro_torch.models.xlstm, "
         "repro_torch.data.pipeline, repro_torch.optim.schedule, "
         "repro_torch.optim.grad, repro_torch.optim.adamw, "
-        "repro_torch.runtime.train_step, repro_torch.launch.train\n"
+        "repro_torch.runtime.train_step, repro_torch.launch.train, "
+        "repro_torch.models.moe, repro_torch.models.mla, "
+        "repro_torch.configs.deepseek_v3_671b\n"
         "from repro_torch.configs.base import get_config\n"
         "get_config('recurrentgemma-9b'), get_config('xlstm-350m')\n"
+        "get_config('deepseek-v3-671b')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"

@@ -51,6 +51,17 @@ D80_CASES = [
     (2, 72, 200, 8, 2, 80, True, 0, 0.0, 128, "float32", 2e-5),
     (1, 200, 200, 8, 2, 80, True, 64, 0.0, 0, "bfloat16", 3e-2),
 ]
+# head dim 192 (deepseek-v3-671b's MLA prefill: q / k 128 + 64, V padded to
+# it) with as many kv heads as q heads: causal, a ragged Sk without a mask
+# (Sq != Sk), a q offset with Sq < Sk, in f32 and bf16 at the same
+# tolerances; the Pallas kernel takes D = 192 in interpret mode
+D192_CASES = [
+    (2, 128, 128, 4, 4, 192, True, 0, 0.0, 0, "float32", 2e-5),
+    (1, 96, 200, 4, 4, 192, False, 0, 0.0, 0, "float32", 2e-5),
+    (1, 72, 200, 4, 4, 192, True, 0, 0.0, 128, "float32", 2e-5),
+    (2, 128, 128, 4, 4, 192, True, 0, 0.0, 0, "bfloat16", 3e-2),
+    (1, 72, 200, 4, 4, 192, True, 0, 0.0, 128, "bfloat16", 3e-2),
+]
 
 # the plain versions: the chunked online softmax the CPU path runs (chunk 48
 # leaves a ragged last chunk in every case) and the naive oracle
@@ -68,8 +79,8 @@ def _pair(a: np.ndarray, dtype: str):
 
 
 @pytest.mark.parametrize("plain", sorted(PLAIN))
-@pytest.mark.parametrize("case",
-                         ATTN_CASES + D256_CASES + BF16_CASES + D80_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + D256_CASES + BF16_CASES
+                         + D80_CASES + D192_CASES)
 def test_plain_flash_matches_pallas_kernel(case, plain):
     b, sq, sk, h, kv, d, causal, window, cap, q_offset, dtype, tol = case
     rng = np.random.default_rng(7)

@@ -63,19 +63,26 @@ def _bridge(jtree, target):
 # (capacity 40 of ~32 a expert); top-2 without a shared expert (capacity 80
 # of ~64: token pairs summed in the combine); a capacity factor of 1e-6
 # (capacity 8: three quarters of the assignments drop); and 8.0 (capacity
-# 256: none drops)
+# 256: none drops). And top-8 as deepseek-v3-671b routes, on its reduced
+# config with 16 experts and its shared expert (capacity 80 of ~64): the
+# combine sums each token's 8 rows in top-k rank order, the reference in
+# expert-sorted order
 MOE_CASES = {"llama4": {}, "top2": {"top_k": 2, "num_shared_experts": 0},
              "drops": {"capacity_factor": 1e-6},
-             "no-drops": {"capacity_factor": 8.0}}
+             "no-drops": {"capacity_factor": 8.0},
+             "top8": {"arch": "deepseek-v3-671b", "num_experts": 16,
+                      "top_k": 8}}
 # f32 on the same params and input: the routed and shared products sum in
-# XLA's and torch's orders (4.8e-7 measured on the llama4 case)
+# XLA's and torch's orders (4.8e-7 measured on the llama4 case; 7.2e-7 on
+# top8, whose 8 rows a token also add in another order, none dropped)
 MOE_TOL = 1e-5
 
 
 def _moe_pair(case):
-    kw = MOE_CASES[case]
-    jcfg = dataclasses.replace(jreduced(jget_config(ARCH)), **kw)
-    cfg = dataclasses.replace(reduced(get_config(ARCH)), **kw)
+    kw = dict(MOE_CASES[case])
+    arch = kw.pop("arch", ARCH)
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), **kw)
+    cfg = dataclasses.replace(reduced(get_config(arch)), **kw)
     jp = jinit_tree(jmoe.moe_descs(jcfg), jax.random.PRNGKey(4), jnp.float32)
     return jcfg, jp, cfg, _bridge(jp, _zeros(moe.moe_descs(cfg)))
 
@@ -394,16 +401,29 @@ def test_moe_checkpoint_payloads_byte_identical(pair):
         assert ser.manifest_bytes(man) == jser.manifest_bytes(jman)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-large-v3",
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llama-3.2-vision-90b"])
 def test_port_refuses_mla_mtp_cross_and_encoders(arch):
-    """The reference's configs the port does not build yet (MLA and MTP,
-    cross attention, encoders), as the port's ModelConfig."""
+    """The reference's configs the port does not build yet (cross
+    attention, encoders), as the port's ModelConfig. The MLA kinds and the
+    MTP module's params are built since deepseek-v3-671b serves
+    (``tests/test_torch_mla.py``); training with MTP is refused below."""
     jcfg = jget_config(arch)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)})
     with pytest.raises(NotImplementedError):
         transformer.model_descs(cfg)
+
+
+def test_train_step_refuses_mtp():
+    """deepseek-v3-671b builds and serves, but its train step needs the
+    reference's ``forward_with_mtp`` and MTP loss, which the port lacks:
+    ``make_train_step`` refuses it."""
+    cfg = reduced(get_config("deepseek-v3-671b"))
+    assert cfg.mtp_depth == 1
+    model = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="MTP"):
+        make_train_step(cfg, model, Adafactor(lr=constant(LR)))
 
 
 def test_serve_cli_runs_reduced_llama4_on_cpu(capsys):
