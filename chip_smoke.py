@@ -43,7 +43,13 @@ Phases; any failure exits non-zero:
      prefill shape (4, 4096, 128, 128, 192) bf16, held per element like
      llama4's, launched twice (bit-identical) and seen by the profiler in
      ``flash_mma_kernel<192>``; the D = 256 backward also at
-     recurrentgemma-9b's attention over 8 x 2048 tokens.
+     recurrentgemma-9b's attention over 8 x 2048 tokens. Head dim 64
+     without a causal mask in f32 and bf16: Sk ragged in the 64-key tiles,
+     with Sq = Sk and Sq != Sk; whisper-large-v3's three prefill shapes in
+     bf16 (the encoder's (4, 1500, 20, 64) and the decoder's cross shape of
+     224 queries over 1500 keys, non-causal; its causal self-attention over
+     224), held per element like llama4's, each launched twice
+     (bit-identical) and seen in ``flash_mma_kernel<64>``.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -64,9 +70,7 @@ Phases; any failure exits non-zero:
      takes 2, checkpoints through the burst buffer unquantized, loses
      server/0, restores from the replicas into a state drawn from another
      seed and takes 2 more. B's params and moments must equal A's bit for
-     bit. The step-4 state then goes through an int8-moment checkpoint:
-     params bit-exact, moments within the half-step bound. The mLSTM kernel
-     runs in every forward (7 launches a step).
+     bit. The mLSTM kernel runs in every forward (7 launches a step).
   3d. the fourth path, the training restart of slice 4: full-width
      starcoder2-3b (2 of 30 layers, bf16 params, f32 AdamW moments) through
      the same restart at 8 + 8 steps of 8 x 2048 tokens; the flash forward
@@ -105,11 +109,24 @@ Phases; any failure exits non-zero:
      against the reconstructed path (``absorbed_decode_check``); the
      flash forward at head dim 192 runs once an MLA layer in every
      prefill.
+  3i. the ninth path, the serving restart of slice 9: whisper-large-v3 at
+     full width and depth (32 enc and 32 cross layers, d_model 1280, 20
+     heads at head dim 64, 1.58 G params) from a params-only checkpoint
+     over 4 servers of 4 GiB, 3 request batches of 4 x 1500 frames (30 s of
+     audio from the stub frontend, drawn from the seed) and 224-token
+     prompts, 32 new tokens; each prefill runs the flash forward once an
+     enc layer (non-causal over the frames) and twice a cross layer (causal
+     over the prompt, non-causal over the frames): 288 launches; a profile
+     of the prefill splits the encoder's device time from the decoder's,
+     one of a decode step the attention over the context cache.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
      (serving), step time, tokens/s, save / flush / restore-after-kill and
-     int8 save / flush / restore seconds and the optimizer update's own
-     seconds (training), a device profile; then a JSON line with each
+     int8 save / flush / restore seconds (slices 4 and 5) and the optimizer
+     update's own seconds (training; xlstm-350m's step times are its run
+     A's and its step is not traced: its sLSTM loop makes a trace of it take
+     ~30 s), a device profile; then a JSON
+     line with each
      kernel's launches, time, bound, plain-version time and the time of one
      PyTorch library call for the same function.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -202,7 +219,9 @@ def _rg_lru_cases(tile_s):
 
 # slice 3: xlstm-350m training, one repeat of its (mLSTM x 7, sLSTM) unit
 # 4 steps (2 + 2 around the kill): its sLSTM's host loop makes a step take
-# ~4 s, and the run stays near half its time limit
+# 4 to 10 s, so the path takes its step times from run A, builds no model
+# to time or trace (a device-only trace of a step took ~33 s) and skips the
+# int8 round (slices 4 and 5 take it), and the run stays inside its limit
 XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 4
 XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
 # a server's DRAM, as for the two training paths below: about four times
@@ -352,11 +371,39 @@ D192_CASES = [case for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2))
      D256_BF16_TOL)]
 DS3_PREFILL_CASE = (DS3_BATCH, DS3_PROMPT, DS3_PROMPT, DS3_HEADS, DS3_HEADS,
                     DS3_HEAD_DIM, True, 0, 0.0, 0, "bfloat16", D256_BF16_TOL)
-P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE)
 # the absorbed decode against the reconstructed path, whole-model logits,
 # relative L2 error a row (``absorbed_decode_check``): bf16 at full width,
 # 8 bf16 unit roundoffs (2^-8 each); PERF.md, slice 8, derives it
 MLA_DECODE_TOL = 8 * 2.0 ** -8
+# slice 9: whisper-large-v3 serving at full width and depth: 3 requests of
+# 4 x 30 s of audio (the stub frontend's 1500 frames of 1280, drawn from the
+# seed) and a 224-token prompt (previous-text conditioning, half its
+# 448-token decoder context), 32 new tokens; MHA at head dim 64
+WH_BATCH, WH_PROMPT, WH_GEN, WH_REQUESTS = 4, 224, 32, 3
+WH_FRAMES, WH_HEADS, WH_HEAD_DIM = 1500, 20, 64
+WH_DRAM = 4 << 30     # ~1.47 GiB a server at replication 2 over 4 (3.16 GB)
+# head dim 64 without a causal mask in f32 (2e-5) and bf16 (the reference's
+# 3e-2): Sk ragged in the 64-key tiles (220 = 3 x 64 + 28, as 1500 = 23 x 64
+# + 28) with Sq = Sk, and with Sq != Sk (90 queries, ragged in the 64-row
+# tiles too); then whisper's three prefill shapes in bf16, held per element
+# like llama4's (rtol D256_BF16_TOL, atol ``_p_rounding_atol``): outputs of
+# a 1500-key softmax are near 0.03, where a fixed atol of 3e-2 holds nothing
+D64_CASES = [case for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2))
+             for case in (
+                 (2, 220, 220, 4, 4, WH_HEAD_DIM, False, 0, 0.0, 0, dtype,
+                  tol),
+                 (2, 90, 220, 4, 2, WH_HEAD_DIM, False, 0, 0.0, 0, dtype,
+                  tol))]
+# the encoder's self-attention, the decoder's cross-attention over the
+# frames, the decoder's causal self-attention over the prompt
+WH_ENC_CASE = (WH_BATCH, WH_FRAMES, WH_FRAMES, WH_HEADS, WH_HEADS,
+               WH_HEAD_DIM, False, 0, 0.0, 0, "bfloat16", D256_BF16_TOL)
+WH_CROSS_CASE = (WH_BATCH, WH_PROMPT, WH_FRAMES) + WH_ENC_CASE[3:]
+WH_SELF_CASE = (WH_BATCH, WH_PROMPT, WH_PROMPT) + WH_ENC_CASE[3:6] \
+    + (True,) + WH_ENC_CASE[7:]
+# the cases held per element by ``_p_rounding_atol``
+P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE, WH_ENC_CASE,
+                 WH_CROSS_CASE, WH_SELF_CASE)
 # the D = 256 backward (the CUDA-core pair) at recurrentgemma-9b's attention
 # layer over 8 x 2048 tokens (its 2048 window: causal at this S); no main
 # path trains at head dim 256
@@ -769,9 +816,12 @@ def check_kernels(gen):
             H2O_PREFILL_CASE: "flash_attention_d80",
             LL_PREFILL_CASE: "flash_attention_llama4",
             LL_NOPE_CASE: "flash_attention_llama4_nope",
-            DS3_PREFILL_CASE: "flash_attention_mla"}
+            DS3_PREFILL_CASE: "flash_attention_mla",
+            WH_ENC_CASE: "flash_attention_whisper",
+            WH_CROSS_CASE: "flash_attention_whisper_cross",
+            WH_SELF_CASE: "flash_attention_whisper_self"}
     for case in (ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES
-                 + D192_CASES + list(rows)):
+                 + D192_CASES + D64_CASES + list(rows)):
         *_, causal, window, cap, q_offset, dtype, tol = case
         q, k, v = _attn_inputs(case, gen)
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -786,7 +836,8 @@ def check_kernels(gen):
         e = _within(f"[flash] {case[:-1]}", out, plain, tol, atol)
         if case in rows:
             err[rows[case]] = e
-        if case == DS3_PREFILL_CASE:
+        if case in (DS3_PREFILL_CASE, WH_ENC_CASE, WH_CROSS_CASE,
+                    WH_SELF_CASE):
             check_repeat_launch(case, q, k, v, out)
         del q, k, v, out, plain, atol
 
@@ -881,11 +932,13 @@ def check_kernels(gen):
 
 
 def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
-                    dram_capacity, train_state):
+                    dram_capacity, train_state, enc_input=None):
     """A serving path: build -> save through the burst buffer -> restore
     onto ``device`` -> serve. ``train_state``: the checkpoint is a
     training-layout state (params, AdamW moments quantized to int8, steps);
     otherwise params only, as a serving restart reads weights.
+    ``enc_input``: the frames every request's prefill encodes (configs with
+    cross layers).
 
     Returns (timings, launches, ...) where launches are the kernel counts
     of the save -> restore -> serve run. Raises SystemExit on any
@@ -908,8 +961,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
                              generator=gen, device=device)
                for _ in range(requests)]
     # tokens served from the un-saved params: the comparison, not counted
-    expected = [serve_batch(cfg, model, params, p, gen_tokens=gen_tokens)
-                for p in prompts]
+    expected = [serve_batch(cfg, model, params, p, gen_tokens=gen_tokens,
+                            enc_input=enc_input) for p in prompts]
 
     fresh = map_tree(torch.zeros_like, params)
     if train_state:
@@ -938,7 +991,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
     for fn in kernels:
         fn.launches = 0
     t = {}
-    bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=dram_capacity)
+    bbcfg = BBConfig(num_servers=4, num_clients=4, dram_capacity=dram_capacity,
+                     stabilize_interval=SERVE_STABILIZE_S)
     with BurstBufferSystem(bbcfg) as bb:
         mgr = BBCheckpointManager(bb, quantize=True)
         host_step(f"{cfg.name}: save")
@@ -956,6 +1010,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         t["flush_s"] = mgr.metrics[STEP].get("flush_s")
         check(mgr.metrics[STEP].get("flushed"), f"the checkpoint was not "
               f"durable on the PFS after {t['flush_s']} s")
+        check(not bb.manager.dead, f"servers {sorted(bb.manager.dead)} were "
+              f"declared dead during the save and flush")
         host_memory(f"{cfg.name} save and flush")
         host_step(f"{cfg.name}: restore")
         t0 = time.perf_counter()
@@ -966,7 +1022,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
         host_memory(f"{cfg.name} restore")
         host_step(f"{cfg.name}: serve the restored params")
         served = [serve_batch(cfg, model, restored["params"], p,
-                              gen_tokens=gen_tokens) for p in prompts]
+                              gen_tokens=gen_tokens, enc_input=enc_input)
+                  for p in prompts]
     launches = {fn.__name__: fn.launches for fn in kernels}
     del fresh, target
 
@@ -1044,18 +1101,20 @@ def _kernels():
             quant.dequantize_blockwise)
 
 
-def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
+def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
+                     int8=True):
     """A training path through ``launch/train.py::train_loop`` (slice 3's
     xlstm-350m, slice 4's starcoder2-3b), deterministic on the card: run A
     takes ``steps`` steps of ``batch`` x ``seq`` tokens; run B takes half of
     them, checkpoints unquantized into a burst buffer of 4 servers of
     ``dram_capacity`` bytes each, loses server/0, restores from the
     replicas into a state drawn from another seed and takes the rest. B
-    must equal A bit for bit. A's final state then makes an int8-moment
-    checkpoint in a fresh burst buffer, restored onto the card.
+    must equal A bit for bit. With ``int8``, A's final state then makes an
+    int8-moment checkpoint in a fresh burst buffer, restored onto the card.
 
     Returns (timings, launches, n_quant); launches are the kernel counts of
-    the whole path. Raises SystemExit on any mismatch."""
+    the whole path, n_quant the int8 leaves (0 without ``int8``). Raises
+    SystemExit on any mismatch."""
     import torch
     from repro_torch.checkpoint import serializer as ser
     from repro_torch.checkpoint.bbckpt import BBCheckpointManager
@@ -1122,6 +1181,8 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
           f"{len(a_leaves)} leaves of params and optimizer state",
           flush=True)
     del state_b, b_leaves
+    if not int8:
+        return t, {fn.__name__: fn.launches for fn in kernels}, 0
 
     # the step-``steps`` state through an int8-moment checkpoint
     state = {"params": state_a.params, "opt_state": state_a.opt_state,
@@ -1153,6 +1214,17 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity):
     return t, launches, n_quant
 
 
+# the serving restarts' server ping cadence (the buffer's default: 0.25 s).
+# A server misses three pings of 0.6 s and is declared dead when its loop
+# stalls for ~2 s at the default, as while the flush assembles and writes
+# its domain of the PFS file (3.2 GB a server of llama4's 12.95 GB); its
+# peers then re-replicate every key they hold, which grew phase 3g's host
+# memory to 96 GiB. At a 2 s cadence a server was still declared dead in
+# 3g on one H100 host (a stall over 6 s). Three missed pings take ~20 s at
+# 10 s (a server stalled for 7 s in a test: dead at 0.25 s, alive at 10
+# s). No serving path kills a server; the training paths do, and keep the
+# default
+SERVE_STABILIZE_S = 10.0
 # how long the survivors' message queues must stay empty after a kill
 # before the restore starts, and the longest a restore waits for that
 SETTLE_QUIET_S = 2.0
@@ -1326,7 +1398,9 @@ def device_profile(what: str, fn, scope: str = ""):
     that launched each (``_scope_device_ms``). Without a scope only the
     device is traced: the CPU ops are what makes a long trace slow to read
     (an xlstm-350m train step on an H100 host: 103 s traced and read with
-    them, 33 s without, the same device busy time)."""
+    them, 33 s without, the same device busy time). Returns the busy ms
+    and {label: device ms} of the port's kernels (None and {} when the
+    profiler recorded no device event)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
@@ -1348,17 +1422,20 @@ def device_profile(what: str, fn, scope: str = ""):
         print(f"[profile] {what}: wall {wall_ms:.3f} ms; device busy not "
               f"measured (the profiler recorded no device events)",
               flush=True)
-        return
+        return None, {}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    port = [(_kernel_label(name), ms) for name, ms in top
-            if PORT_KERNEL.search(name)]
+    port = {}
+    for name, ms in top:
+        if PORT_KERNEL.search(name):
+            label = _kernel_label(name)
+            port[label] = port.get(label, 0.0) + ms
     print(f"[profile] {what}: wall {wall_ms:.3f} ms (traced), device busy "
           f"{busy:.3f} ms = {100 * busy / wall_ms:.1f}% (idle "
           f"{100 - 100 * busy / wall_ms:.1f}%); top: " + "; ".join(
               f"{name[:60]} {ms:.3f} ms" for name, ms in top[:6])
           + "; the port's kernels: " + ("; ".join(
-              f"{name} {ms:.3f} ms" for name, ms in port) or "none"),
+              f"{name} {ms:.3f} ms" for name, ms in port.items()) or "none"),
           flush=True)
     if scope:
         by_op = _scope_device_ms(prof, scope)
@@ -1370,11 +1447,11 @@ def device_profile(what: str, fn, scope: str = ""):
               f"{100 * inside / busy:.1f}% of the busy time; products "
               f"({', '.join(sorted(op for op in by_op if op in MATMUL_OPS))})"
               f" {products:.3f} ms = {100 * products / max(inside, 1e-9):.1f}"
-              f"%, the rest (routing, sort, gathers, scatter, combine, "
-              f"activation) {inside - products:.3f} ms = "
+              f"%, the rest {inside - products:.3f} ms = "
               f"{100 * (inside - products) / max(inside, 1e-9):.1f}%: "
               + "; ".join(f"{op} {ms:.3f} ms" for op, ms in rest[:8]),
               flush=True)
+    return busy, port
 
 
 # the aten ops that run a matrix product's kernels
@@ -1384,7 +1461,8 @@ MATMUL_OPS = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm")
 def _scope_device_ms(prof, scope: str):
     """{aten op: device ms} of the kernels launched inside every CPU range
     named ``scope`` in ``prof``, each kernel under the op that launched it
-    (its innermost CPU op)."""
+    (its innermost CPU op). The port's kernels, launched through ctypes,
+    are linked to no CPU op and do not show here."""
     import torch
     by_op = {}
     stack = [e for e in prof.events() if e.name == scope
@@ -1398,14 +1476,17 @@ def _scope_device_ms(prof, scope: str):
     return by_op
 
 
-def time_serving(cfg, model, params, prompts, gen_tokens):
+def time_serving(cfg, model, params, prompts, gen_tokens, enc_input=None):
+    """Prefill ms (5 calls after 2 warm-up ones) and decode tok/s of one
+    request, then a device profile of each. ``enc_input``: the frames the
+    prefill encodes (configs with cross layers)."""
     import torch
     host_step(f"{cfg.name}: timing prefill and decode")
     b, s = prompts.shape
     with torch.inference_mode():
         def run_prefill():
             cache = model.init_cache(b, s + gen_tokens, device=prompts.device)
-            return model.prefill(params, cache, prompts)
+            return model.prefill(params, cache, prompts, enc_input)
 
         def run_decode(logits, cache):
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1428,20 +1509,67 @@ def time_serving(cfg, model, params, prompts, gen_tokens):
         decode_s = time.perf_counter() - t0
 
         # models/moe.py::apply_moe runs each MoE FFN in a range "moe"
+        kinds = {k for unit, _ in cfg.segments for k in unit}
         has_moe = any(k.startswith("moe") or k.endswith("_moe")
-                      for unit, _ in cfg.segments for k in unit)
-        device_profile(f"{cfg.name} prefill (B={b}, S={s})", run_prefill,
-                       scope="moe" if has_moe else "")
+                      for k in kinds)
+        busy, port = device_profile(f"{cfg.name} prefill (B={b}, S={s})",
+                                    run_prefill,
+                                    scope="moe" if has_moe else "")
+        if cfg.num_encoder_layers:
+            encoder_split(cfg, params, enc_input, busy, port)
         logits, cache = run_prefill()
         device_profile(f"{cfg.name} decode ({gen_tokens - 1} steps, B={b})",
                        lambda: run_decode(logits, cache))
+        if "cross" in kinds:
+            # one step with its CPU ops traced: the attention over the
+            # context's K / V cache runs in ranges "xattn_cache"
+            # (models/attention.py::decode_cross_attention)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            device_profile(f"{cfg.name} decode step (B={b}, position {s})",
+                           lambda: model.decode_step(params, cache, tok, s),
+                           scope="xattn_cache")
     return prefill_ms, b * (gen_tokens - 1) / decode_s
 
 
-def serving_numbers(cfg, t, model, params, prompts, gen_tokens):
+def encoder_split(cfg, params, enc_input, busy, port):
+    """The prefill's device time split between the encoder and the decoder
+    (with the encoder's flash launches, the cross layers' K / V from the
+    context, the unembedding): a device profile of the encoder alone, run
+    as the prefill runs it, against the prefill's busy time ``busy`` and
+    its port kernels ``port`` (``device_profile``'s). The port's kernels
+    are linked to no CPU op, so a range inside the prefill cannot claim
+    them; the stream runs the encoder's work alone either way."""
+    from repro_torch.models import transformer
+    b, frames = enc_input.shape[:2]
+    enc_busy, enc_port = device_profile(
+        f"{cfg.name} encoder alone (B={b}, {frames} frames)",
+        lambda: transformer._encode(cfg, params, enc_input))
+    if busy is None or enc_busy is None:
+        return
+    dec = busy - enc_busy
+    dec_port = {name: ms - enc_port.get(name, 0.0)
+                for name, ms in port.items()}
+    print(f"[profile] {cfg.name} prefill split: encoder "
+          f"{_share(enc_busy, busy)} of the prefill's busy {busy:.3f} ms, "
+          f"the port's kernels in it {_shares(enc_port, enc_busy)}; decoder "
+          f"{_share(dec, busy)}, the port's kernels in it "
+          f"{_shares(dec_port, dec)}", flush=True)
+
+
+def _share(ms, total):
+    return f"{ms:.3f} ms = {100 * ms / max(total, 1e-9):.1f}%"
+
+
+def _shares(port, total):
+    return "; ".join(f"{name} {_share(ms, total)}"
+                     for name, ms in port.items()) or "none"
+
+
+def serving_numbers(cfg, t, model, params, prompts, gen_tokens,
+                    enc_input=None):
     b, s = prompts.shape
     prefill_ms, decode_tps = time_serving(cfg, model, params, prompts,
-                                          gen_tokens)
+                                          gen_tokens, enc_input)
     print(f"[numbers] {cfg.name}: save {t['save_s']:.3f}s (ingest of "
           f"{t['ckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
           f"flush {t['flush_s']}s (off the critical path), restore "
@@ -1450,17 +1578,23 @@ def serving_numbers(cfg, t, model, params, prompts, gen_tokens):
           flush=True)
 
 
-def _causal_pairs(case):
-    """(q, k) pairs the causal and window masks leave, over every (b, h)."""
-    b, s, _, h, _, _, _, window, *_ = case
-    return b * h * sum(min(i + 1, window) if window else i + 1
-                       for i in range(s))
+def _attended_pairs(case):
+    """(q, k) pairs the case's masks leave, over every (b, h): query i sits
+    at position i + q_offset and sees keys 0 .. Sk - 1, causal: up to its
+    position, window: the last ``window`` positions up to its own."""
+    b, sq, sk, h, _, _, causal, window, _, q_offset, *_ = case
+    n = 0
+    for i in range(q_offset, q_offset + sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(i - window + 1, 0) if window else 0
+        n += max(hi - lo, 0)
+    return b * h * n
 
 
 def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
                graph_calls=None):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
-    the (q, k) pairs the causal and window masks leave; ``stats``: the
+    the (q, k) pairs the case's masks leave; ``stats``: the
     kernel also writes the row statistics (the training path's forward),
     m and l counted in its bytes; ``plain_iters``: the plain version's
     timed calls (after one warm-up when fewer than 20); ``graph_calls``:
@@ -1474,22 +1608,15 @@ def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
 
-    b, s, _, h, kv, d, causal, window, *_ = case
+    b, sq, sk, h, kv, d, causal, window, *_ = case
     q, k, v = _attn_inputs(case, gen)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    pairs = _causal_pairs(case)
+    pairs = _attended_pairs(case)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
-        + (2 * 4 * b * s * h if stats else 0)
+        + (2 * 4 * b * sq * h if stats else 0)
     bms, by = bound(nbytes, 4 * d * pairs, BF16_FLOPS)
-    if window:
-        pos = torch.arange(s, device="cuda")
-        mask = (pos[None, :] <= pos[:, None]) \
-            & (pos[None, :] > pos[:, None] - window)
-        library = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    else:
-        library = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **_sdpa_mask(case))
     kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
                                         return_stats=stats)
     # graphs of ~10 to ~50 ms
@@ -1510,6 +1637,21 @@ def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
     }
 
 
+def _sdpa_mask(case):
+    """SDPA's mask arguments for a case without a q offset: none, causal
+    (``is_causal``, Sq = Sk), or a boolean mask for a window."""
+    import torch
+    _, sq, sk, *_, causal, window, _, q_offset, _, _ = case
+    check(q_offset == 0 and (sq == sk or not causal), f"no SDPA mask for "
+          f"{case}")
+    if window and window < sk:
+        pos = torch.arange(sk, device="cuda")
+        keep = pos[None, :] > pos[:, None] - window
+        return {"attn_mask": (pos[None, :] <= pos[:, None]) & keep
+                if causal else keep}
+    return {"is_causal": causal}
+
+
 def _flash_bwd_row(name, case, gen, launches, err, ran):
     """The backward kernel, its plain version and SDPA's backward at a
     training shape ``case``. The bound: q, o, dO and dq, k, v, dk and dv in
@@ -1526,27 +1668,22 @@ def _flash_bwd_row(name, case, gen, launches, err, ran):
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
 
-    s, d, causal, window = case[1], case[5], case[6], case[7]
+    d, causal, window = case[5], case[6], case[7]
     q, k, v = _attn_inputs(case, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     with torch.no_grad():
         o, m, l = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      return_stats=True)
     nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * 2 * m.numel()
-    bms, by = bound(nbytes, 5 * 2 * d * _causal_pairs(case), BF16_FLOPS)
+    bms, by = bound(nbytes, 5 * 2 * d * _attended_pairs(case), BF16_FLOPS)
     kernel = lambda: fa.flash_attention_bwd(q, k, v, o, m, l, do,
                                             causal=causal, window=window)
     qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
                   for a in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    mask = {"is_causal": True}
-    if window and window < s:
-        pos = torch.arange(s, device="cuda")
-        mask = {"attn_mask": (pos[None, :] <= pos[:, None])
-                & (pos[None, :] > pos[:, None] - window)}
     with torch.enable_grad():
         out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                             **mask)
+                                             **_sdpa_mask(case))
         library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                               retain_graph=True)
         library_ms = cuda_ms(library, iters=5, warmup=2)
@@ -1648,7 +1785,7 @@ def kernel_line(gen, launches, err, bwd_ran):
     xl, sct = launches["xlstm-350m"], launches["starcoder2-3b train"]
     ds, h2o = launches["deepseek-coder-33b"], launches["h2o-danube-1.8b"]
     ll = launches["llama4-scout-17b-a16e"]
-    ds3 = launches["deepseek-v3-671b"]
+    ds3, wh = launches["deepseek-v3-671b"], launches["whisper-large-v3"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
                            sc["flash_attention"], err["flash_attention"]),
@@ -1730,6 +1867,23 @@ def kernel_line(gen, launches, err, bwd_ran):
                                ds3["flash_attention"],
                                err["flash_attention_mla"], plain_iters=3,
                                graph_calls=5))
+        # slice 9: whisper-large-v3's prefill at head dim 64, 20 heads
+        # (MHA); the row's times are the encoder's non-causal self-attention
+        # over 1500 frames, as cross_* the decoder's non-causal attention of
+        # 224 queries over the frames, as self_* its causal self-attention
+        # over the prompt; launches: the path's, one a layer at each shape
+        row = _flash_row("flash_attention_whisper", WH_ENC_CASE, gen,
+                         wh["flash_attention"],
+                         err["flash_attention_whisper"])
+        for prefix, case in (("cross", WH_CROSS_CASE),
+                             ("self", WH_SELF_CASE)):
+            other = _flash_row(f"flash_attention_whisper_{prefix}", case,
+                               gen, wh["flash_attention"],
+                               err[f"flash_attention_whisper_{prefix}"])
+            row.update({f"{prefix}_{key}": other[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "graph_ms", "library_graph_ms")})
+        rows.append(row)
     # the backward at the training shapes; no main path trains h2o-danube
     # or at head dim 256, so the D = 80 and D = 256 rows have no launches
     for name, case, runs in (
@@ -1744,34 +1898,45 @@ def kernel_line(gen, launches, err, bwd_ran):
 
 
 def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
-                  per_step):
-    """A training phase: ``training_restart`` and ``time_training`` under
-    torch's deterministic algorithms; the launch counts must be exactly
+                  per_step, int8=True, timing=True):
+    """A training phase: ``training_restart`` (``int8``: with its int8
+    round) and, with ``timing``, ``time_training``, under torch's
+    deterministic algorithms; the launch counts must be exactly
     ``per_step`` launches a step (run A's steps and run B's) of each kernel
     named there, the int8 checkpoint's quantize and dequantize launches,
-    and none of any other kernel. Prints the path's numbers and returns the
-    launch counts."""
+    and none of any other kernel. Without ``timing`` the step times are
+    the ``[train]`` lines of run A and the peak device memory the path's.
+    Prints the path's numbers and returns the launch counts."""
     import torch
+    torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True)
     try:
         t, launches, n_quant = training_restart(
             cfg, device, batch=batch, seq=seq, steps=steps,
-            dram_capacity=dram_capacity)
+            dram_capacity=dram_capacity, int8=int8)
         want = {name: 0 for name in launches}
         want.update({name: n * 2 * steps for name, n in per_step.items()})
         want.update(quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
         print(f"[main] launches in train -> save -> kill -> restore -> "
-              f"train -> int8 save -> restore: {launches} (expected "
-              f"{want})", flush=True)
+              f"train{' -> int8 save -> restore' if int8 else ''}: "
+              f"{launches} (expected {want})", flush=True)
         check(all(launches[name] > 0 for name in per_step)
               and launches == want, f"launch counts {launches} != {want}")
-        step_s, tok_s, peak_gb, layer_s, update_s = time_training(
-            cfg, device, batch, seq)
+        if timing:
+            step_s, tok_s, peak_gb, update_s = time_training(
+                cfg, device, batch, seq)
     finally:
         torch.use_deterministic_algorithms(False)
-    print(f"[numbers] {cfg.name}: step {step_s:.3f}s ({tok_s:.1f} tok/s, "
-          f"B={batch}, S={seq}), peak device memory {peak_gb:.2f} GB, "
-          f"optimizer update {update_s:.4f}s", flush=True)
+    if timing:
+        print(f"[numbers] {cfg.name}: step {step_s:.3f}s ({tok_s:.1f} "
+              f"tok/s, B={batch}, S={seq}), peak device memory "
+              f"{peak_gb:.2f} GB, optimizer update {update_s:.4f}s",
+              flush=True)
+    else:
+        print(f"[numbers] {cfg.name}: step times in run A's [train] lines "
+              f"(B={batch}, S={seq}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the "
+              f"path", flush=True)
     print(f"[numbers] {cfg.name}: save {t['save_s']:.3f}s (ingest of "
           f"{t['ckpt_bytes']} bytes = {t['ckpt_bytes'] / 1e9:.3f} GB, "
           f"unquantized; {2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server "
@@ -1779,13 +1944,11 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
           f"GiB), flush {t['flush_s']}s (off the critical path), restore "
           f"after the kill {t['restore_s']:.3f}s (the buffer handled the "
           f"kill in {t['settle_s']}s before it)", flush=True)
-    print(f"[numbers] {cfg.name}: int8 save {t['qsave_s']:.3f}s "
-          f"({t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), int8 "
-          f"flush {t['qflush_s']}s, int8 restore {t['qrestore_s']:.3f}s",
-          flush=True)
-    print(f"[numbers] {cfg.name}: one block forward and backward: "
-          + ", ".join(f"{kind} {sec:.3f}s" for kind, sec in layer_s.items()),
-          flush=True)
+    if int8:
+        print(f"[numbers] {cfg.name}: int8 save {t['qsave_s']:.3f}s "
+              f"({t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
+              f"int8 flush {t['qflush_s']}s, int8 restore "
+              f"{t['qrestore_s']:.3f}s", flush=True)
     return launches
 
 
@@ -1795,11 +1958,10 @@ def _layers(cfg, kind):
 
 def time_training(cfg, device, batch, seq):
     """Step time, tokens/s and peak device memory of the train step at the
-    path's shape (three steps after a warm-up one, deterministic as on the
-    path), one profiled step, one forward and backward of each layer kind
-    of the config, and the optimizer update's own seconds (host clock
-    around ``synchronize``, after a warm-up update; the params stand in for
-    the gradients)."""
+    path's shape (one step after a warm-up one, deterministic as on the
+    path), one profiled step, and the optimizer update's own seconds (host
+    clock around ``synchronize``, after a warm-up update; the params stand
+    in for the gradients)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.train import batch_to, build
@@ -1808,21 +1970,17 @@ def time_training(cfg, device, batch, seq):
     _, optimizer, state, step_fn = build(cfg, seed=SEED, device=device)
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
                                global_batch=batch)
-    batches = [batch_to(next(pipe), device) for _ in range(4)]
+    batches = [batch_to(next(pipe), device) for _ in range(2)]
     state, _ = step_fn(state, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for b in batches[1:]:
-        state, _ = step_fn(state, b)
+    state, _ = step_fn(state, batches[1])
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (len(batches) - 1)
+    step_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     device_profile(f"{cfg.name} train step (B={batch}, S={seq})",
                    lambda: step_fn(state, batches[0]))
-    kinds = sorted({k for unit, _ in cfg.segments for k in unit})
-    layer_s = {kind: _layer_seconds(cfg, state.params, kind, device, batch,
-                                    seq) for kind in kinds}
     with torch.no_grad():
         optimizer.update(state.params, state.opt_state, state.params)
         torch.cuda.synchronize()
@@ -1830,37 +1988,7 @@ def time_training(cfg, device, batch, seq):
         optimizer.update(state.params, state.opt_state, state.params)
         torch.cuda.synchronize()
         update_s = time.perf_counter() - t0
-    return step_s, batch * seq / step_s, peak_gb, layer_s, update_s
-
-
-def _layer_seconds(cfg, params, kind, device, batch, seq, reps=2):
-    """Host-clock seconds of one forward and backward of the first
-    ``kind`` block of the trained params on a bf16 (B, S, d_model) input,
-    after a warm-up pass."""
-    import torch
-    from repro_torch.models import transformer
-    from repro_torch.models.common import map_tree
-    j = str(cfg.segments[0][0].index(kind))
-    p = map_tree(lambda a: a[0].detach().requires_grad_(True),
-                 params["segments"]["seg0"][j])
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
-    x = torch.randn((batch, seq, cfg.d_model), generator=gen,
-                    device=device).to(torch.bfloat16).requires_grad_(True)
-    ext = {"positions": torch.arange(seq, dtype=torch.int32,
-                                     device=device).expand(batch, seq)}
-    apply = transformer.KINDS[kind].apply
-
-    def run():
-        apply(cfg, p, x, ext).float().square().mean().backward()
-
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        run()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps
+    return step_s, batch * seq / step_s, peak_gb, update_s
 
 
 def llama4_path(device):
@@ -2126,6 +2254,62 @@ def deepseek_v3_path(device):
     return {name: launches_a[name] + launches_b[name] for name in launches_a}
 
 
+def whisper_path(device):
+    """Phase 3i, the serving restart of slice 9: whisper-large-v3 at full
+    width and depth (32 enc layers, 32 cross layers) from a params-only
+    checkpoint; every request's prefill encodes 4 x 1500 frames drawn from
+    the seed and attends to them from a 224-token prompt. Prints the path's
+    numbers and returns its launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config("whisper-large-v3")
+    check((cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (1280, WH_HEADS, WH_HEADS, WH_HEAD_DIM, 5120, 51866)
+          and cfg.segments == ((("cross",), 32),)
+          and (cfg.num_encoder_layers, cfg.encoder_seq, cfg.encoder_dim)
+          == (32, WH_FRAMES, 1280)
+          and (cfg.norm, cfg.act, cfg.mlp_gated, cfg.pos_embed,
+               cfg.tie_embeddings) == ("layernorm", "gelu", False, "learned",
+                                       True)
+          and cfg.param_dtype == "bfloat16", "whisper-large-v3 shapes")
+    print(f"[main] {cfg.name} full width and depth (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads (MHA), head_dim {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff} GELU, LayerNorm, vocab {cfg.vocab_size} tied, "
+          f"learned decoder positions ({cfg.max_position}), sincos encoder "
+          f"positions; {cfg.num_encoder_layers} enc + {cfg.num_layers} cross "
+          f"layers, {cfg.param_dtype}); {cfg.param_count()} params; "
+          f"{WH_REQUESTS} requests of {WH_BATCH} x {cfg.encoder_seq} frames "
+          f"of {cfg.encoder_dim} (30 s of audio) and a {WH_PROMPT}-token "
+          f"prompt, {WH_GEN} new tokens; params-only checkpoint over 4 "
+          f"servers of {WH_DRAM / 2**30:.0f} GiB DRAM", flush=True)
+    enc = torch.as_tensor(np.random.default_rng(SEED).normal(
+        0, 1, (WH_BATCH, cfg.encoder_seq, cfg.encoder_dim)),
+        dtype=torch.float32, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    t, launches, (model, params, prompts, n_quant) = serving_restart(
+        cfg, device, batch=WH_BATCH, prompt=WH_PROMPT, gen_tokens=WH_GEN,
+        requests=WH_REQUESTS, dram_capacity=WH_DRAM, train_state=False,
+        enc_input=enc)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # each prefill launches the flash forward once an enc layer and twice a
+    # cross layer (self-attention over the prompt, attention to the frames)
+    want = {"flash_attention": (cfg.num_encoder_layers
+                                + 2 * _layers(cfg, "cross")) * WH_REQUESTS,
+            "flash_attention_bwd": 0, "rg_lru": 0, "mlstm": 0,
+            "quantize_blockwise": n_quant, "dequantize_blockwise": n_quant}
+    print(f"[main] launches in save -> restore -> serve: {launches} "
+          f"(expected {want})", flush=True)
+    check(launches == want and launches["flash_attention"] == 288,
+          f"launch counts {launches} != {want}")
+    print(f"[numbers] {cfg.name}: peak device memory {peak_gb:.2f} GB over "
+          f"save -> restore -> serve; checkpoint {t['ckpt_bytes']} bytes, "
+          f"{2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server", flush=True)
+    serving_numbers(cfg, t, model, params, prompts, WH_GEN, enc_input=enc)
+    return launches
+
+
 def main():
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts; the training path runs twice and is compared bit for bit
@@ -2224,7 +2408,8 @@ def main():
           f"tokens, {XL_STEPS} steps", flush=True)
     xl_launches = training_path(
         xl_cfg, device, batch=XL_BATCH, seq=XL_SEQ, steps=XL_STEPS,
-        dram_capacity=XL_DRAM, per_step={"mlstm": _layers(xl_cfg, "mlstm")})
+        dram_capacity=XL_DRAM, per_step={"mlstm": _layers(xl_cfg, "mlstm")},
+        int8=False, timing=False)
     host_memory("phase 3c")
 
     # phase 3d: slice 4's path, starcoder2-3b training through a server
@@ -2311,6 +2496,10 @@ def main():
     ds3_launches = deepseek_v3_path(device)
     host_memory("phase 3h")
 
+    # phase 3i: slice 9's path, whisper-large-v3 at full width and depth
+    wh_launches = whisper_path(device)
+    host_memory("phase 3i")
+
     host_step("the kernels line")
     rows = kernel_line(gen, {"starcoder2-3b": launches,
                              "recurrentgemma-9b": rg_launches,
@@ -2319,8 +2508,8 @@ def main():
                              "deepseek-coder-33b": ds_launches,
                              "h2o-danube-1.8b": h2o_launches,
                              "llama4-scout-17b-a16e": ll_launches,
-                             "deepseek-v3-671b": ds3_launches}, err,
-                       bwd_ran)
+                             "deepseek-v3-671b": ds3_launches,
+                             "whisper-large-v3": wh_launches}, err, bwd_ran)
     host_memory("the kernels line")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -21,6 +21,8 @@ Layer kinds the port builds so far (see models/transformer.py registry):
   moe_nope    global self-attention without RoPE (NoPE) + MoE FFN
   mla_dense   multi-head latent attention (DeepSeek-V3) + dense MLP
   mla_moe     multi-head latent attention + MoE FFN
+  cross       self-attention + cross-attention + dense MLP (vision / decoder)
+  enc         bidirectional self-attention + dense MLP (encoder)
 """
 from __future__ import annotations
 
@@ -135,7 +137,8 @@ def _load_all():
     import importlib
     for mod in ("starcoder2_3b", "gemma3_4b", "recurrentgemma_9b",
                 "xlstm_350m", "deepseek_coder_33b", "h2o_danube_1_8b",
-                "llama4_scout_17b_a16e", "deepseek_v3_671b"):
+                "llama4_scout_17b_a16e", "deepseek_v3_671b",
+                "whisper_large_v3", "llama_3_2_vision_90b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

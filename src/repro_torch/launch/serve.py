@@ -25,8 +25,11 @@ from repro_torch.runtime.serve_step import (greedy_token, make_decode_step,
 
 
 @torch.inference_mode()
-def serve_batch(cfg, model, params, prompts, *, gen_tokens=16, max_seq=None):
+def serve_batch(cfg, model, params, prompts, *, gen_tokens=16, max_seq=None,
+                enc_input=None):
     """prompts: (B, S) int tensor -> generated (B, gen_tokens) int32.
+    enc_input: (B, S_enc, encoder_dim) frames or patches for configs with
+    cross layers, encoded once, at the prefill.
 
     The reference donates the decode cache to its jitted step; here the
     cache is allocated once per batch and updated in place.
@@ -37,7 +40,7 @@ def serve_batch(cfg, model, params, prompts, *, gen_tokens=16, max_seq=None):
     prefill = make_prefill(cfg, model)
     decode = make_decode_step(cfg, model)
 
-    logits, cache = prefill(params, cache, prompts)
+    logits, cache = prefill(params, cache, prompts, enc_input)
     tok = greedy_token(cfg, logits)
     out = [tok]
     pos = s
@@ -68,12 +71,19 @@ def main(argv=None):
     params = model.init(0, device=device)
     rng = np.random.default_rng(0)
 
+    enc = None
+    if cfg.encoder_seq:
+        enc = torch.as_tensor(rng.normal(
+            0, 1, (args.batch, cfg.encoder_seq, cfg.encoder_dim)),
+            dtype=torch.float32, device=device)
+
     for r in range(args.requests):
         prompts = torch.as_tensor(rng.integers(
             1, cfg.vocab_size, (args.batch, args.prompt_len)),
             dtype=torch.int64, device=device)
         t0 = time.perf_counter()
-        toks = serve_batch(cfg, model, params, prompts, gen_tokens=args.gen)
+        toks = serve_batch(cfg, model, params, prompts, gen_tokens=args.gen,
+                           enc_input=enc)
         toks = toks.cpu()           # waits for the device
         dt = time.perf_counter() - t0
         print(f"[serve] request-batch {r}: {tuple(toks.shape)} in {dt:.2f}s "

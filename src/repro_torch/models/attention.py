@@ -1,11 +1,14 @@
-"""Attention: GQA/MQA/MHA self-attention (global / sliding-window).
+"""Attention: GQA/MQA/MHA self-attention (global / sliding-window),
+cross-attention.
 
-Counterpart of ``repro/models/attention.py`` without cross-attention and
-without the mesh-only context-parallel constraint. Training/prefill runs
-the fused flash-attention op from ``repro_torch.kernels.ops`` (the CUDA
-kernel on the card, the chunked online softmax on the CPU). Decode attends
-one query token against a fixed-size ring-buffer KV cache in plain PyTorch,
-as the reference does in plain jnp.
+Counterpart of ``repro/models/attention.py`` without the mesh-only
+context-parallel constraint. Training/prefill runs the fused
+flash-attention op from ``repro_torch.kernels.ops`` (the CUDA kernel on the
+card, the chunked online softmax on the CPU); cross-attention runs it
+non-causally over the encoder / vision states. Decode attends one query
+token against a fixed-size ring-buffer KV cache (self-attention) or the
+context's K / V cache (cross-attention) in plain PyTorch, as the reference
+does in plain jnp.
 
 Unlike the reference, whose caches are immutable arrays (donated to the
 jitted decode step), the port writes the new token's K/V into the cache
@@ -49,8 +52,10 @@ def _proj(x, w):
         *x.shape[:-1], heads, hd)
 
 
-def _project_qkv(cfg, p, x):
-    return _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_qkv(cfg, p, x, ctx=None):
+    """q from x; k/v from ctx (cross) or x (self)."""
+    src = x if ctx is None else ctx
+    return _proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"])
 
 
 def _out_proj(cfg, p, o):
@@ -76,6 +81,19 @@ def self_attention(cfg, p, x, positions, *, window: int = 0,
     return _out_proj(cfg, p, o)
 
 
+def cross_attention(cfg, p, x, ctx):
+    """x: (B, S, d); ctx: (B, S_ctx, d) encoder/vision states (no mask)."""
+    return cross_attend(cfg, p, x, *prefill_cross_cache(cfg, p, ctx))
+
+
+def cross_attend(cfg, p, x, k, v):
+    """Cross-attention of x over the context's projected k / v (B, S_ctx,
+    KV, D): the flash kernel, non-causal, no window, no softcap."""
+    o = kops.flash_attention(_proj(x, p["wq"]), k, v, causal=False,
+                             window=0, softcap=0.0)
+    return _out_proj(cfg, p, o)
+
+
 # ---------------------------------------------------------------------------
 # decode (single new token against a KV cache)
 
@@ -86,6 +104,13 @@ def init_self_cache(cfg, batch: int, max_seq: int, *, window: int = 0,
     size = min(window, max_seq) if window else max_seq
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (batch, size, kv, hd)
+    return {"k": torch.zeros(shape, dtype=cfg_dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=cfg_dtype(cfg), device=device)}
+
+
+def init_cross_cache(cfg, batch: int, ctx_len: int, device="cuda"):
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, ctx_len, kv, hd)
     return {"k": torch.zeros(shape, dtype=cfg_dtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=cfg_dtype(cfg), device=device)}
 
@@ -122,6 +147,23 @@ def decode_self_attention(cfg, p, x, cache, pos: int, *, window: int = 0,
 
     o = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
     return _out_proj(cfg, p, o), cache
+
+
+def decode_cross_attention(cfg, p, x, cache):
+    """x: (B, 1, d) against the context's K / V cache (every key valid).
+    Runs in a profiler range "xattn_cache", which ``chip_smoke.py``'s
+    decode profile reads for the cache attention's device time."""
+    with torch.profiler.record_function("xattn_cache"):
+        q = _proj(x, p["wq"])
+        valid = torch.ones(cache["k"].shape[1], dtype=torch.bool,
+                           device=x.device)
+        o = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
+        return _out_proj(cfg, p, o)
+
+
+def prefill_cross_cache(cfg, p, ctx):
+    """The context's (k, v): (B, S_ctx, KV, D) each."""
+    return _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
 
 
 def _cache_attend(cfg, q, k, v, valid):

@@ -10,9 +10,11 @@ and a checkpoint written by one package restores in the other.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -155,6 +157,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=4)
+def sincos_positions(seq: int, dim: int) -> np.ndarray:
+    """Fixed sinusoidal table (whisper encoder), f32 (seq, dim), read-only.
+    Computed once a shape (the reference's jit folds it into a constant):
+    whisper's 1500 x 1280 takes ~40 ms of host time, every prefill."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * i / dim)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    table = table.astype(np.float32)
+    table.flags.writeable = False
+    return table
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,10 @@ from repro_torch.models.common import tree_leaves
 class Model:
     cfg: Any
     init: Callable                      # (seed, device="cuda") -> params
-    forward: Callable                   # (params, tokens) -> logits
+    forward: Callable                   # (params, tokens, enc_input=None) -> logits
     init_cache: Callable                # (batch, max_seq, device="cuda") -> cache
-    decode_step: Callable               # (params, cache, tokens, pos) -> (logits, cache)
-    prefill: Callable                   # (params, cache, tokens) -> (logits, cache)
+    decode_step: Callable               # (params, cache, tokens, pos, enc_input=None)
+    prefill: Callable                   # (params, cache, tokens, enc_input=None)
 
 
 def build_model(cfg) -> Model:
@@ -34,15 +34,16 @@ def build_model(cfg) -> Model:
     return Model(
         cfg=cfg,
         init=init,
-        forward=lambda params, tokens: transformer.forward(cfg, params,
-                                                           tokens),
+        forward=lambda params, tokens, enc_input=None: transformer.forward(
+            cfg, params, tokens, enc_input),
         init_cache=lambda batch, max_seq, device="cuda":
             transformer.init_cache(cfg, batch, max_seq,
                                    resolve_device(device)),
-        decode_step=lambda params, cache, tokens, pos:
-            transformer.decode_step(cfg, params, cache, tokens, pos),
-        prefill=lambda params, cache, tokens:
-            transformer.prefill(cfg, params, cache, tokens),
+        decode_step=lambda params, cache, tokens, pos, enc_input=None:
+            transformer.decode_step(cfg, params, cache, tokens, pos,
+                                    enc_input),
+        prefill=lambda params, cache, tokens, enc_input=None:
+            transformer.prefill(cfg, params, cache, tokens, enc_input),
     )
 
 

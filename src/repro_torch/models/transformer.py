@@ -1,19 +1,26 @@
-"""Decoder-only transformer built from stacked layer segments.
+"""Multi-family transformer built from stacked layer segments.
 
 Counterpart of ``repro/models/transformer.py`` for the layer kinds ``attn``
 and ``attn_local`` (global and sliding-window self-attention with a dense
 MLP), ``moe``, ``moe_local`` and ``moe_nope`` (global, sliding-window and
 NoPE global self-attention with a mixture-of-experts FFN), ``mla_dense``
 and ``mla_moe`` (DeepSeek-V3's multi-head latent attention with a dense or
-MoE FFN), ``rglru`` (the Griffin recurrent block with a dense MLP), and
-``mlstm`` and ``slstm`` (the xLSTM blocks). A model
+MoE FFN), ``rglru`` (the Griffin recurrent block with a dense MLP),
+``mlstm`` and ``slstm`` (the xLSTM blocks), ``cross`` (self-attention,
+cross-attention to encoder or vision states and a dense MLP: whisper's
+decoder, llama-3.2-vision's cross layers) and ``enc`` (bidirectional
+self-attention with a dense MLP: whisper's encoder). A model
 = embedding -> [segments] -> final norm -> unembedding, where each segment
 repeats a fixed ``unit`` of layer kinds; the reference scans over the
 stacked layer dimension, the port loops over it in Python. A config with
-``mtp_depth`` also carries DeepSeek-V3's multi-token-prediction module
-(``mtp``) in its tree, as the reference's does; only the reference's
-``forward_with_mtp`` (training) reads it, and the port does not train
-with it yet, so serving never touches it.
+an encoder (``num_encoder_layers``) also carries ``enc_proj``, the stacked
+``encoder`` and ``enc_final_norm``; a vision config (``cross_source``
+without an encoder) only ``enc_proj``: ``_encode`` turns the stub
+frontend's ``enc_input`` into the context the cross layers attend to. A
+config with ``mtp_depth`` also carries DeepSeek-V3's
+multi-token-prediction module (``mtp``) in its tree, as the reference's
+does; only the reference's ``forward_with_mtp`` (training) reads it, and
+the port does not train with it yet, so serving never touches it.
 
 Caches are updated in place: ``prefill`` and ``decode_step`` write into the
 cache tensors they are given and return the same cache.
@@ -31,10 +38,11 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import (P, apply_norm, apply_rope,
+from repro_torch.models.common import (P, apply_norm, apply_rope, cfg_dtype,
                                        cfg_param_dtype, embed_descs,
                                        embed_tokens, init_tree, map_tree,
-                                       norm_descs, stack_descs, unembed)
+                                       norm_descs, sincos_positions,
+                                       stack_descs, unembed)
 from repro_torch.models.mlp import apply_mlp, mlp_descs
 
 
@@ -70,7 +78,7 @@ def _ffn(cfg, p, x, ffn):
 
 
 def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
-                    ffn="dense"):
+                    ffn="dense", causal=True):
     def descs(cfg):
         return _ffn_descs(cfg, attn.attn_descs(cfg), ffn)
 
@@ -87,7 +95,8 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
     def apply(cfg, p, x, ext):
         h = apply_norm(cfg, p["norm1"], x)
         h = attn.self_attention(_acfg(cfg), p["attn"], h, ext["positions"],
-                                window=_window(cfg), rope_theta=_theta(cfg))
+                                window=_window(cfg), causal=causal,
+                                rope_theta=_theta(cfg))
         return _ffn(cfg, p, x + h, ffn)
 
     def init_cache(cfg, batch, max_seq, device):
@@ -109,7 +118,8 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
         if rope and cfg.pos_embed == "rope":
             q = apply_rope(q, ext["positions"], _theta(cfg))
             k = apply_rope(k, ext["positions"], _theta(cfg))
-        o = kops.flash_attention(q, k, v, causal=True, window=_window(cfg),
+        o = kops.flash_attention(q, k, v, causal=causal,
+                                 window=_window(cfg),
                                  softcap=cfg.logit_softcap)
         x = _ffn(cfg, p, x + attn._out_proj(cfg, p["attn"], o), ffn)
         # write the (possibly windowed) tail of k/v into the ring cache
@@ -215,6 +225,65 @@ def _slstm_decode(cfg, p, x, cache, ext):
     return xlstm_mod.decode_slstm_block(cfg, p, x, cache)
 
 
+# ---------------------------------------------------------------------------
+# cross-attention kind (vision layers / whisper decoder)
+
+
+def _cross_descs(cfg):
+    return {"norm1": norm_descs(cfg), "attn": attn.attn_descs(cfg),
+            "norm_c": norm_descs(cfg), "xattn": attn.attn_descs(cfg),
+            "norm2": norm_descs(cfg), "mlp": mlp_descs(cfg)}
+
+
+def _cross_apply(cfg, p, x, ext):
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attn.self_attention(cfg, p["attn"], h, ext["positions"])
+    h = apply_norm(cfg, p["norm_c"], x)
+    x = x + attn.cross_attention(cfg, p["xattn"], h, ext["ctx"])
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(cfg, p["mlp"], h)
+
+
+def _cross_cache(cfg, batch, max_seq, device):
+    return {"kv": attn.init_self_cache(cfg, batch, max_seq, device=device),
+            "xkv": attn.init_cross_cache(cfg, batch, max(cfg.encoder_seq, 1),
+                                         device=device)}
+
+
+def _cross_decode(cfg, p, x, cache, ext):
+    h = apply_norm(cfg, p["norm1"], x)
+    h, _ = attn.decode_self_attention(cfg, p["attn"], h, cache["kv"],
+                                      ext["pos"])
+    x = x + h
+    h = apply_norm(cfg, p["norm_c"], x)
+    x = x + attn.decode_cross_attention(cfg, p["xattn"], h, cache["xkv"])
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(cfg, p["mlp"], h), cache
+
+
+def _cross_prefill(cfg, p, x, cache, ext):
+    """Causal self-attention over the prompt (its K / V into the self cache
+    from position 0), then cross-attention over the context, whose K / V
+    fill the cross cache that every decode step reads."""
+    h = apply_norm(cfg, p["norm1"], x)
+    q, k, v = attn._project_qkv(cfg, p["attn"], h)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, ext["positions"], cfg.rope_theta)
+        k = apply_rope(k, ext["positions"], cfg.rope_theta)
+    o = kops.flash_attention(q, k, v, causal=True)
+    x = x + attn._out_proj(cfg, p["attn"], o)
+    s = k.shape[1]
+    cache["kv"]["k"][:, :s] = k
+    cache["kv"]["v"][:, :s] = v
+    xk, xv = attn.prefill_cross_cache(cfg, p["xattn"], ext["ctx"])
+    cache["xkv"]["k"].copy_(xk)
+    cache["xkv"]["v"].copy_(xv)
+    h = apply_norm(cfg, p["norm_c"], x)
+    x = x + attn.cross_attend(cfg, p["xattn"], h, xk, xv)
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + apply_mlp(cfg, p["mlp"], h), cache
+
+
 KINDS: Dict[str, Kind] = {
     "attn": _make_attn_kind(),
     "attn_local": _make_attn_kind(window_attr="window_size", local_theta=True),
@@ -235,6 +304,9 @@ KINDS: Dict[str, Kind] = {
                   lambda cfg, p, x, ext: xlstm_mod.apply_slstm_block(cfg, p,
                                                                      x),
                   _slstm_cache, _slstm_decode, _slstm_decode),
+    "cross": Kind(_cross_descs, _cross_apply, _cross_cache, _cross_decode,
+                  _cross_prefill),
+    "enc": _make_attn_kind(causal=False),
 }
 
 
@@ -244,11 +316,10 @@ KINDS: Dict[str, Kind] = {
 
 def model_descs(cfg):
     kinds = {k for unit, _ in cfg.segments for k in unit}
-    if kinds - set(KINDS) or cfg.num_encoder_layers or cfg.cross_source:
+    if kinds - set(KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: the port builds layer kinds {sorted(KINDS)} "
-            f"without cross attention or encoders; config has "
-            f"{sorted(kinds)}")
+            f"{cfg.name}: the port builds layer kinds {sorted(KINDS)}; "
+            f"config has {sorted(kinds)}")
     d: Dict[str, Any] = {"embed": embed_descs(cfg), "segments": {}}
     for i, (unit, reps) in enumerate(cfg.segments):
         seg = {str(j): KINDS[k].descs(cfg) for j, k in enumerate(unit)}
@@ -267,6 +338,13 @@ def model_descs(cfg):
             "layer": stack_descs({"0": KINDS[last_kind].descs(cfg)}, 1),
             "final_norm": norm_descs(cfg),
         }
+    if cfg.num_encoder_layers or cfg.cross_source:
+        d["enc_proj"] = P((cfg.encoder_dim, cfg.d_model),
+                          ("enc_dim", "embed"), "fanin")
+    if cfg.num_encoder_layers:
+        d["encoder"] = stack_descs({"0": KINDS["enc"].descs(cfg)},
+                                   cfg.num_encoder_layers)
+        d["enc_final_norm"] = norm_descs(cfg)
     return d
 
 
@@ -285,10 +363,35 @@ def _positions(b: int, s: int, start: int, device):
                         device=device).expand(b, s)
 
 
-def forward(cfg, params, tokens):
-    """Training / scoring forward. tokens: (B, S) -> logits (B, S, V)."""
+def _encode(cfg, params, enc_input):
+    """enc_input: (B, S_enc, encoder_dim) stub frontend output ->
+    (B, S_enc, d): the projection in the compute dtype, then (whisper) the
+    sincos table rounded to that dtype, the encoder stack and its final
+    norm."""
+    dt = cfg_dtype(cfg)
+    x = torch.matmul(enc_input.to(dt), params["enc_proj"].to(dt))
+    if not cfg.num_encoder_layers:
+        return x
+    b, s = x.shape[:2]
+    table = torch.tensor(sincos_positions(s, cfg.d_model), device=x.device)
+    x = x + table.to(x.dtype)[None]
+    ext = {"positions": _positions(b, s, 0, x.device), "ctx": None}
+    for r in range(cfg.num_encoder_layers):
+        x = KINDS["enc"].apply(cfg, _layer(params["encoder"], r)["0"], x,
+                               ext)
+    return apply_norm(cfg, params["enc_final_norm"], x)
+
+
+def _ext(cfg, params, positions, enc_input):
+    ctx = _encode(cfg, params, enc_input) if enc_input is not None else None
+    return {"positions": positions, "ctx": ctx}
+
+
+def forward(cfg, params, tokens, enc_input=None):
+    """Training / scoring forward. tokens: (B, S) -> logits (B, S, V).
+    enc_input: (B, S_enc, encoder_dim) for configs with cross layers."""
     b, s = tokens.shape
-    ext = {"positions": _positions(b, s, 0, tokens.device)}
+    ext = _ext(cfg, params, _positions(b, s, 0, tokens.device), enc_input)
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
     for i, (unit, reps) in enumerate(cfg.segments):
         seg_params = params["segments"][f"seg{i}"]
@@ -322,9 +425,14 @@ def _run_cached(cfg, params, cache, x, ext, method: str):
     return x
 
 
-def decode_step(cfg, params, cache, tokens, pos: int):
+def decode_step(cfg, params, cache, tokens, pos: int, enc_input=None):
     """One-token decode. tokens: (B, 1); pos = tokens already cached.
-    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    Returns (logits (B, 1, V), cache), the cache updated in place.
+
+    Cross layers read the context's K / V from the cache that ``prefill``
+    filled, so decode encodes nothing: ``enc_input`` is taken for the
+    reference's signature, whose decode encodes it and leaves the result
+    unread."""
     b = tokens.shape[0]
     ext = {"positions": _positions(b, 1, pos, tokens.device), "pos": pos}
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
@@ -333,11 +441,12 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     return unembed(cfg, params["embed"], x), cache
 
 
-def prefill(cfg, params, cache, tokens):
-    """Fill caches for tokens[0..S) in place; returns last-position logits
-    (B, 1, V) and the cache."""
+def prefill(cfg, params, cache, tokens, enc_input=None):
+    """Fill caches for tokens[0..S) in place (cross layers: the context
+    encoded from ``enc_input`` into their K / V cache); returns
+    last-position logits (B, 1, V) and the cache."""
     b, s = tokens.shape
-    ext = {"positions": _positions(b, s, 0, tokens.device)}
+    ext = _ext(cfg, params, _positions(b, s, 0, tokens.device), enc_input)
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
     x = _run_cached(cfg, params, cache, x, ext, "prefill")
     x = apply_norm(cfg, params["final_norm"], x[:, -1:])

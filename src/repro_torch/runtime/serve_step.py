@@ -15,8 +15,8 @@ def make_decode_step(cfg, model):
 
 
 def make_prefill(cfg, model):
-    def prefill(params, cache, tokens):
-        return model.prefill(params, cache, tokens)
+    def prefill(params, cache, tokens, enc_input=None):
+        return model.prefill(params, cache, tokens, enc_input)
     return prefill
 
 

@@ -72,8 +72,8 @@ def _fill(t, it):
 def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,
                     clip_norm: float = 1.0):
     if cfg.mtp_depth or cfg.num_encoder_layers or cfg.cross_source:
-        raise NotImplementedError(f"{cfg.name}: MTP and encoder inputs are "
-                                  f"not ported yet")
+        raise NotImplementedError(f"{cfg.name}: the train step with MTP or "
+                                  f"with encoder inputs is not ported yet")
     vp = padded_vocab(cfg)
     adt = DTYPES[cfg.grad_accum_dtype]
 

@@ -9,9 +9,11 @@ rebuilds it, and ``chip_smoke.py``'s wait for the buffer to handle a
 server's loss before a restore. Torch trees on the CPU; the same code runs
 on the card in ``chip_smoke.py``'s restarts."""
 import importlib.util
+import time
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.checkpoint import serializer as ser
@@ -198,3 +200,42 @@ def test_settle_after_kill_waits_for_the_failure_to_be_handled():
         restored, step = BBCheckpointManager(bb).restore(_tree(0))
     assert step == 2
     _assert_equal(restored, tree)
+
+
+@pytest.mark.parametrize("cadence", ["default", "serving"])
+def test_a_stalled_server_is_declared_dead_only_at_the_default_cadence(
+        cadence):
+    """A server whose loop stalls for 7 s (as while the flush writes its
+    domain of a large checkpoint) misses its predecessor's pings: at the
+    buffer's default cadence (0.25 s) it is declared dead, and its peers
+    re-replicate; at ``chip_smoke.SERVE_STABILIZE_S``, the serving
+    restarts' cadence, it is not."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    interval = chip_smoke.SERVE_STABILIZE_S if cadence == "serving" \
+        else BBConfig.stabilize_interval
+    with BurstBufferSystem(BBConfig(num_servers=4, num_clients=4,
+                                    dram_capacity=64 << 20,
+                                    stabilize_interval=interval)) as bb:
+        srv = bb.servers["server/1"]
+        dispatch, stalled = srv._dispatch, []
+
+        def stall_once(msg):
+            if msg.kind == "ping" and not stalled:
+                stalled.append(msg)
+                time.sleep(7.0)
+            return dispatch(msg)
+
+        srv._dispatch = stall_once
+        deadline = time.monotonic() + 3 * interval + 1.0
+        while time.monotonic() < deadline and not stalled:
+            time.sleep(0.05)
+        assert stalled
+        # the stall, and 2 s for the failure report to reach the manager
+        deadline = time.monotonic() + 9.0
+        while time.monotonic() < deadline \
+                and "server/1" not in bb.manager.dead:
+            time.sleep(0.1)
+        assert ("server/1" in bb.manager.dead) == (cadence == "default")

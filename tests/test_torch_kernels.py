@@ -183,7 +183,8 @@ def _chip_smoke():
     return module
 
 
-def _bf16_p_flash(q, k, v, *, window, q_offset, lost_tile=False):
+def _bf16_p_flash(q, k, v, *, window, q_offset, lost_tile=False,
+                  causal=True):
     """The bf16 flash kernel's arithmetic in plain torch: f32 scores and
     row sum, P rounded to bf16 for P V, the output rounded to bf16.
     ``lost_tile``: rows with a whole window drop their first 64 keys, as a
@@ -195,7 +196,7 @@ def _bf16_p_flash(q, k, v, *, window, q_offset, lost_tile=False):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, kk)
     qpos = torch.arange(sq)[:, None] + q_offset
     kpos = torch.arange(k.shape[1])[None, :]
-    keep = kpos <= qpos
+    keep = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
     if window:
         keep &= kpos > qpos - window
         if lost_tile:
@@ -256,3 +257,59 @@ def test_p_rounding_bound_catches_a_lost_window_tile():
     assert (diff > tol + rel).float().mean() < 0.01
     with pytest.raises(SystemExit):
         smoke._within("lost tile", out, plain, tol, atol)
+
+
+# whisper-large-v3's prefill heads (20, MHA, D = 64) at fewer rows: the
+# encoder's and the cross-attention's non-causal softmax over 1500 keys
+# (outputs near 0.03), and the first rows of the decoder's causal
+# self-attention over its 224-token prompt
+WHISPER_P_ROUND_CASES = [("non-causal over 1500 keys", 64, 1500, False),
+                         ("causal first rows", 224, 224, True)]
+
+
+@pytest.mark.parametrize("name,sq,sk,causal", WHISPER_P_ROUND_CASES,
+                         ids=[c[0] for c in WHISPER_P_ROUND_CASES])
+def test_p_rounding_bound_admits_the_kernels_bf16_p_at_whisper_shapes(
+        name, sq, sk, causal):
+    """The same bound, without a causal mask and with Sq != Sk, holds the
+    kernel's emulated arithmetic at head dim 64; rtol one bf16 ulp alone
+    (atol 0) would not: a 1500-key softmax's outputs are small."""
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randn(1, sq, 20, 64, generator=gen).bfloat16()
+    k = torch.randn(1, sk, 20, 64, generator=gen).bfloat16()
+    v = torch.randn(1, sk, 20, 64, generator=gen).bfloat16()
+    kw = dict(causal=causal, window=0, q_offset=0)
+    plain = ops.flash_chunked(q, k, v, **kw)
+    atol = smoke._p_rounding_atol(q, k, v, **kw)
+    out = _bf16_p_flash(q, k, v, window=0, q_offset=0, causal=causal)
+    assert not torch.equal(out, plain)
+    smoke._within(name, out, plain, smoke.D256_BF16_TOL, atol)
+    with pytest.raises(SystemExit):
+        smoke._within(name, out, plain, smoke.D256_BF16_TOL,
+                      torch.zeros_like(atol))
+
+
+# (B, Sq, Sk, H, KV, D, causal, window, softcap, q_offset): causal, a window
+# inside the rows, non-causal with Sq = Sk and with Sq != Sk (whisper's
+# cross shape, cut), causal and windowed with a q offset (Sq < Sk)
+PAIR_CASES = [(2, 100, 100, 3, 1, 64, True, 0, 0.0, 0),
+              (1, 100, 100, 2, 1, 64, True, 30, 0.0, 0),
+              (2, 150, 150, 3, 3, 64, False, 0, 0.0, 0),
+              (2, 22, 150, 3, 3, 64, False, 0, 0.0, 0),
+              (1, 40, 150, 2, 1, 64, True, 0, 0.0, 110),
+              (1, 40, 150, 2, 1, 64, True, 25, 0.0, 110)]
+
+
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_attended_pairs_count_the_plain_masks(case):
+    """chip_smoke.py's bound counts the (q, k) pairs the plain version's
+    masks leave: causal, window, Sk and q_offset honoured."""
+    smoke = _chip_smoke()
+    b, sq, sk, h, *_, causal, window, _, q_offset = case
+    qpos = (torch.arange(sq) + q_offset)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    n = int(ops._attn_mask(qpos, kpos, causal, window).sum())
+    assert smoke._attended_pairs(case + ("bfloat16", 0.0)) == b * h * n
+    if not causal and not window:
+        assert n == sq * sk

@@ -404,15 +404,30 @@ def test_moe_checkpoint_payloads_byte_identical(pair):
 @pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llama-3.2-vision-90b"])
 def test_port_refuses_mla_mtp_cross_and_encoders(arch):
-    """The reference's configs the port does not build yet (cross
-    attention, encoders), as the port's ModelConfig. The MLA kinds and the
-    MTP module's params are built since deepseek-v3-671b serves
-    (``tests/test_torch_mla.py``); training with MTP is refused below."""
+    """The reference's configs with cross attention (and, for whisper, an
+    encoder), taken as the port's ModelConfig, build in the port with the
+    reference's tree: the ``cross`` and ``enc`` kinds, ``enc_proj``, the
+    stacked ``encoder`` and ``enc_final_norm``
+    (``tests/test_torch_cross.py``). What the port still refuses is
+    training with them (below), and MTP training."""
     jcfg = jget_config(arch)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)})
-    with pytest.raises(NotImplementedError):
-        transformer.model_descs(cfg)
+    descs = transformer.model_descs(cfg)
+    assert "enc_proj" in descs
+    assert ("encoder" in descs) == bool(cfg.num_encoder_layers)
+    assert count_params(cfg) == jcount_params(jcfg)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
+def test_train_step_refuses_encoder_inputs(arch):
+    """Both cross-attention configs build and serve, but the train step
+    with encoder inputs is not ported: ``make_train_step`` refuses them."""
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="encoder inputs"):
+        make_train_step(cfg, model, Adafactor(lr=constant(LR)))
 
 
 def test_train_step_refuses_mtp():
