@@ -27,7 +27,7 @@ Phases; any failure exits non-zero:
      Sq != Sk) and at the training shape (8, 2048, 24, 2, 128) bf16, two
      launches there bit-identical; each case prints the device kernels it
      ran (the profiler's names), which must be the tensor-core ones for
-     bf16 at head dims up to 128 and the CUDA-core ones for the rest; the
+     bf16 at every head dim and the CUDA-core ones for f32; the
      stats-emitting forward's o bit for bit the stats-free one's and its
      m, l within 1e-4 of the plain forward's. Head dim 80 (h2o-danube-1.8b)
      in f32 and bf16, forward and backward: a window edge inside a ragged
@@ -42,8 +42,11 @@ Phases; any failure exits non-zero:
      (3e-2), a small windowed bf16 case within one bf16 ulp, and the
      prefill shape (4, 4096, 128, 128, 192) bf16, held per element like
      llama4's, launched twice (bit-identical) and seen by the profiler in
-     ``flash_mma_kernel<192>``; the D = 256 backward also at
-     recurrentgemma-9b's attention over 8 x 2048 tokens. Head dim 64
+     ``flash_mma_kernel<192>``; the bf16 D = 256 backward at its dk and dv
+     blocks' edges (gemma3-4b's 8 / 4 heads with its 1024 window at a
+     ragged S, a q offset, non-causal Sq != Sk, softcap) and at
+     recurrentgemma-9b's attention over 8 x 2048 tokens (two launches
+     bit-identical). Head dim 64
      without a causal mask in f32 and bf16: Sk ragged in the 64-key tiles,
      with Sq = Sk and Sq != Sk; whisper-large-v3's three prefill shapes in
      bf16 (the encoder's (4, 1500, 20, 64) and the decoder's cross shape of
@@ -273,7 +276,11 @@ TRAIN_FWD_CASE = TRAIN_ATTN_CASE[:11] + (3e-2,)
 # tiles, 64-row dq tiles, 16-key warp slices): head dim 16, a GQA group of
 # 12 (H 24, KV 2) at a short S, Sk not a multiple of 64 with a window edge
 # inside tiles, a q offset with Sq < Sk and Sq not a multiple of 64,
-# softcap with GQA at D = 128, and non-causal with Sq != Sk
+# softcap with GQA at D = 128, and non-causal with Sq != Sk; then the same
+# edges at D = 256 (its dk and dv blocks, 16-row q steps, 16-key dq tiles):
+# gemma3-4b's 8 heads over 4 KV with its 1024 window at S = 1100 (ragged in
+# every tile; the window's edge 76 keys behind each query falls inside the
+# 64-key tiles), a q offset with Sq < Sk, non-causal with Sq != Sk, softcap
 BWD_EDGE_CASES = [
     (1, 100, 100, 4, 2, 16, True, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
     (2, 256, 256, 24, 2, 128, True, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
@@ -281,6 +288,11 @@ BWD_EDGE_CASES = [
     (1, 72, 200, 4, 1, 64, True, 0, 0.0, 128, "bfloat16", D256_BF16_TOL),
     (1, 160, 160, 8, 2, 128, True, 0, 30.0, 0, "bfloat16", D256_BF16_TOL),
     (1, 96, 130, 4, 2, 32, False, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
+    (1, 1100, 1100, 8, 4, 256, True, 1024, 0.0, 0, "bfloat16",
+     D256_BF16_TOL),
+    (1, 72, 200, 4, 1, 256, True, 0, 0.0, 128, "bfloat16", D256_BF16_TOL),
+    (1, 96, 130, 4, 2, 256, False, 0, 0.0, 0, "bfloat16", D256_BF16_TOL),
+    (1, 160, 160, 8, 2, 256, True, 0, 30.0, 0, "bfloat16", D256_BF16_TOL),
 ]
 
 # slice 5: deepseek-coder-33b training at full width, DS_LAYERS of its 62
@@ -404,9 +416,9 @@ WH_SELF_CASE = (WH_BATCH, WH_PROMPT, WH_PROMPT) + WH_ENC_CASE[3:6] \
 # the cases held per element by ``_p_rounding_atol``
 P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE, WH_ENC_CASE,
                  WH_CROSS_CASE, WH_SELF_CASE)
-# the D = 256 backward (the CUDA-core pair) at recurrentgemma-9b's attention
-# layer over 8 x 2048 tokens (its 2048 window: causal at this S); no main
-# path trains at head dim 256
+# the D = 256 backward at recurrentgemma-9b's attention layer over 8 x 2048
+# tokens (its 2048 window: causal at this S); no main path trains at head
+# dim 256
 RG_TRAIN_ATTN_CASE = (8, 2048, 2048, RG_HEADS, 1, RG_HEAD_DIM, True,
                       RG_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
 # the training shapes, where two launches must be bit-identical
@@ -420,16 +432,14 @@ BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
 
 
 def bwd_kernels(case):
-    """The device kernels the backward must run on a case: bf16 at head
-    dims up to 128 on the tensor cores, the rest on the CUDA cores."""
+    """The device kernels the backward must run on a case: bf16 on the
+    tensor cores at every head dim, f32 on the CUDA cores."""
     d, dtype = case[5], case[10]
-    if dtype == "bfloat16" and d <= 128:
+    if dtype == "bfloat16":
         names = [f"flash_bwd_mma_dkdv_kernel<{d}>",
                  f"flash_bwd_mma_dq_kernel<{d}>"]
     else:
-        t = "bf16" if dtype == "bfloat16" else "f32"
-        names = [f"flash_bwd_dkdv_kernel<{t}, {d}>",
-                 f"flash_bwd_dq_kernel<{t}, {d}>"]
+        names = [f"flash_bwd_dkdv_kernel<{d}>", f"flash_bwd_dq_kernel<{d}>"]
     return sorted(names + ["flash_bwd_delta_kernel"])
 
 
@@ -468,7 +478,7 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 
 
 def _kernel_label(name: str) -> str:
-    """'mlstm_mma_kernel<512>', 'flash_bwd_dq_kernel<f32, 128>' or
+    """'mlstm_mma_kernel<512>', 'dequantize_kernel<f32>' or
     'dequantize_kernel<bf16>' from a template instance's name, mangled (as
     ptxas prints it) or demangled (as the profiler does),
     'flash_bwd_delta_kernel' from a plain one; other names unchanged."""

@@ -27,16 +27,17 @@
 // Outputs are rounded once to the input type, as the reference casts them.
 //
 // Which kernels take what, chosen in the C entry point:
-//  * bfloat16 at D in {16, 32, 48, 64, 80, 128} (every training path; the
-//    starcoder2-3b and deepseek-coder-33b shapes are D = 128, h2o-danube-
-//    1.8b's D = 80): flash_bwd_mma_dkdv_kernel<D> and
-//    flash_bwd_mma_dq_kernel<D>, every tile product on the tensor cores
-//    (mma.sync m16n8k16, bf16 in, f32 accumulate), below.
-//  * float32 at every D, and bfloat16 at D = 256: flash_bwd_dkdv_kernel<D,
-//    T> and flash_bwd_dq_kernel<D, T>, every product in f32 on the CUDA
+//  * bfloat16 at every D, {16, 32, 48, 64, 80, 128, 256} (every training
+//    path; the starcoder2-3b and deepseek-coder-33b shapes are D = 128,
+//    h2o-danube-1.8b's D = 80, recurrentgemma-9b's and gemma3-4b's 256):
+//    flash_bwd_mma_dkdv_kernel<D> and flash_bwd_mma_dq_kernel<D>, every
+//    tile product on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//    accumulate), below. At D = 256 a dk / dv block accumulates dk or dv,
+//    not both (SPLIT).
+//  * float32 at every D: flash_bwd_dkdv_kernel<D> and
+//    flash_bwd_dq_kernel<D>, every product in f32 on the CUDA
 //    cores. The tensor cores would take f32 as TF32, which the reference's
-//    f32 tolerance of 2e-5 rules out; at D = 256 a warp's 16 keys of dk and
-//    dv would take 256 f32 accumulators a thread, more than its registers.
+//    f32 tolerance of 2e-5 rules out.
 //
 // What bounds it on this card, at the training shape of starcoder2-3b
 // (B = 8, S = 2048, H = 24, KV = 2, D = 128, bf16, causal): the five
@@ -106,18 +107,34 @@
 //    64-key tiles at 2 blocks were 18% slower), at D <= 64 64-key tiles at
 //    2 blocks. D = 80 rows are 88 bf16, 11 16-byte units: dk / dv 69,120
 //    bytes, dq 45,056 bytes a block.
+//  * D = 256. A warp's 16 keys of both dk and dv would be 2 x 16 x 256 f32,
+//    256 accumulators a thread (255 registers at most), so the dk / dv
+//    launch holds two blocks a key tile (SPLIT): a dv block forms S^T and
+//    P^T and adds P^T dO, a dk block forms S^T, dP^T and dS^T and adds
+//    dS^T Q; each holds 128 accumulators, as D = 128 does. That costs one
+//    more S product (11 tile products where D <= 128 does 10) and a second
+//    read of Q and dO, and doubles the blocks: B x KV x Sk / 64 is 256 at
+//    recurrentgemma-9b's KV = 1, about one block an SM of a 132-SM card,
+//    and the heaviest (key tile 0, every q row of 16 heads) then set the
+//    time. Rows are 264 bf16 (528 bytes, 33 16-byte units). dk / dv: K, V
+//    2 x 64 x 528 bytes, (Q, dO) ring 2 x 2 x 16 x 528 (q steps of 16
+//    rows), row vectors 2 x 3 x 16 x 4: 101,760 bytes, 2 blocks an SM (a
+//    64-row ring would be 204,288 bytes, 1 block). dq: Q and dO 2 x 64 x
+//    528, the (K, V) ring 2 x 2 x 16 x 528 (16-key tiles): 101,376 bytes,
+//    2 blocks an SM; dq takes 128 accumulators a thread.
 //    Registers and spills per instance: `[ptxas flash_attention_bwd]` in
 //    chip_smoke.py's output (PERF.md keeps them); the tile and exp
 //    variants: `python -m repro_torch.kernels.tune_flash_bwd`.
 //
-// The CUDA-core kernels: 256 threads as a 16 x 16 grid (ty, tx). In a tile
-// product a thread owns rows ty + 16 i and columns tx + 16 j, so a warp
-// reads two rows of one operand (a broadcast) and 16 rows of the other at
-// a row pitch of D + 1 words (16 banks). Tiles of 64 q rows x 64 keys for
-// D <= 128, 32 x 32 for D = 256; shared memory a block (f32 staging, four
-// (rows x (D + 1)) tiles, two (BQ x (BK + 1)) score tiles, three row
-// vectors): D = 128 166,144 bytes, D = 256 140,416 bytes, so one block an
-// SM. P and dS go through shared memory and loads are synchronous.
+// The CUDA-core kernels (f32 only): 256 threads as a 16 x 16 grid (ty, tx).
+// In a tile product a thread owns rows ty + 16 i and columns tx + 16 j, so
+// a warp reads two rows of one operand (a broadcast) and 16 rows of the
+// other at a row pitch of D + 1 words (16 banks). Tiles of 64 q rows x 64
+// keys for D <= 128, 32 x 32 for D = 256; shared memory a block (f32
+// staging, four (rows x (D + 1)) tiles, two (BQ x (BK + 1)) score tiles,
+// three row vectors): D = 128 166,144 bytes, D = 256 140,416 bytes, so one
+// block an SM. P and dS go through shared memory and loads are
+// synchronous.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -127,18 +144,6 @@ namespace {
 constexpr int THREADS = 256;
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 struct BwdPlan {
@@ -158,16 +163,15 @@ struct Masks {
   float softcap, scale;
 };
 
-// rows [r0, r0 + ROWS) of a (rows, stride) matrix of T, columns [0, D),
-// into an f32 tile of pitch D + 1; rows past n are zero
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n,
-                                      size_t stride) {
+// rows [r0, r0 + ROWS) of a (rows, stride) f32 matrix, columns [0, D),
+// into a tile of pitch D + 1; rows past n are zero
+template <int D, int ROWS>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int n, size_t stride) {
   for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
     const int r = e / D, d = e % D;
     const int row = r0 + r;
-    dst[r * (D + 1) + d] = row < n ? to_f32(src[(size_t)row * stride + d])
-                                   : 0.f;
+    dst[r * (D + 1) + d] = row < n ? src[(size_t)row * stride + d] : 0.f;
   }
 }
 
@@ -268,8 +272,8 @@ flash_bwd_delta_kernel(const void* __restrict__ dout,
   for (int d = lane; d < D; d += 32) {
     float g, x;
     if (bf16_in) {
-      g = to_f32(static_cast<const bf16*>(dout)[base + d]);
-      x = to_f32(static_cast<const bf16*>(o)[base + d]);
+      g = __bfloat162float(static_cast<const bf16*>(dout)[base + d]);
+      x = __bfloat162float(static_cast<const bf16*>(o)[base + d]);
     } else {
       g = static_cast<const float*>(dout)[base + d];
       x = static_cast<const float*>(o)[base + d];
@@ -282,14 +286,17 @@ flash_bwd_delta_kernel(const void* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ m,
                       const float* __restrict__ l,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int KV, Masks mk) {
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int H,
+                      int KV, Masks mk) {
   using Plan = BwdPlan<D>;
   constexpr int BQ = Plan::BQ, BK = Plan::BK, RJ = Plan::RJ, DJ = Plan::DJ;
   constexpr int P = Plan::P, PS = Plan::PS;
@@ -374,18 +381,19 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = kv_off + (size_t)key * k_stride;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = from_f32<T>(adk[i][j]);
-      dv[off + tx + 16 * j] = from_f32<T>(adv[i][j]);
+      dk[off + tx + 16 * j] = adk[i][j];
+      dv[off + tx + 16 * j] = adv[i][j];
     }
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int KV, Masks mk) {
   using Plan = BwdPlan<D>;
   constexpr int BQ = Plan::BQ, BK = Plan::BK, RI = Plan::RI, DJ = Plan::DJ;
@@ -459,11 +467,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= Sq) continue;
     const size_t off = q_off + (size_t)row * q_stride;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[off + tx + 16 * j] = from_f32<T>(acc[i][j]);
+    for (int j = 0; j < DJ; ++j) dq[off + tx + 16 * j] = acc[i][j];
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* m, const float* l, const float* delta, void* dq,
            void* dk, void* dv, int B, int H, int KV, const Masks& mk,
@@ -473,26 +481,26 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const int k_tiles = (mk.Sk + Plan::BK - 1) / Plan::BK;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D, T>,
+      flash_bwd_dkdv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Plan::SMEM);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, T>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Plan::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(dout);
-  flash_bwd_dkdv_kernel<D, T>
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(dout);
+  flash_bwd_dkdv_kernel<D>
       <<<dim3(k_tiles, KV, B), THREADS, Plan::SMEM, stream>>>(
-          qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), H, KV, mk);
+          qt, kt, vt, gt, m, l, delta, static_cast<float*>(dk),
+          static_cast<float*>(dv), H, KV, mk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D, T>
+  flash_bwd_dq_kernel<D>
       <<<dim3(q_tiles, H, B), THREADS, Plan::SMEM, stream>>>(
-          qt, kt, vt, gt, m, l, delta, static_cast<T*>(dq), H, KV, mk);
+          qt, kt, vt, gt, m, l, delta, static_cast<float*>(dq), H, KV, mk);
   return (int)cudaGetLastError();
 }
 
@@ -504,20 +512,25 @@ struct MmaBwdPlan {
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int PITCH = D + 8;  // bf16 per smem row
   // dk / dv: 16 keys a warp; q steps of KV_BQ rows through a 2-stage
-  // ring, their scores formed KV_QS queries at a time
+  // ring, their scores formed KV_QS queries at a time. SPLIT: dk and dv
+  // in blocks of their own (a warp's 16 keys of both would take 2 D f32
+  // accumulators a thread, 512 at D = 256)
+  static constexpr bool SPLIT = D > 128;
   static constexpr int KV_BK = 16 * WARPS;
-  static constexpr int KV_BQ = 64;
+  static constexpr int KV_BQ = D > 128 ? 16 : 64;
   static constexpr int KV_QS = D == 128 ? 16 : KV_BQ;
   static constexpr int KV_SMEM =
       (int)sizeof(bf16) * (2 * KV_BK + 2 * 2 * KV_BQ) * PITCH +
       (int)sizeof(float) * 2 * 3 * KV_BQ;
   // dq: 16 q rows a warp; key tiles of Q_BK through a 2-stage ring
   static constexpr int Q_BQ = 16 * WARPS;
-  static constexpr int Q_BK = D >= 80 ? 32 : 64;
-  static constexpr int Q_BLOCKS = D >= 80 ? 3 : 2;
+  static constexpr int Q_BK = D > 128 ? 16 : D >= 80 ? 32 : 64;
+  static constexpr int Q_BLOCKS = D > 128 ? 2 : D >= 80 ? 3 : 2;
   static constexpr int Q_SMEM =
       (int)sizeof(bf16) * (2 * Q_BQ + 2 * 2 * Q_BK) * PITCH;
-  static_assert(D % 16 == 0 && D <= 128, "16-wide k steps, D <= 128");
+  static_assert(D % 16 == 0 && (D <= 128 || D == 256),
+                "16-wide k steps, D <= 128 or 256");
+  static_assert(KV_BQ % KV_QS == 0, "whole sub-steps in a q step");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -646,17 +659,20 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, const Masks& mk) {
 // operand (16 x 16) holds rows g / g + 8 at columns 2c + {0, 1} (regs 0, 1)
 // and 2c + 8 + {0, 1} (regs 2, 3); a B operand (16 x 8) holds column g at
 // rows 2c + {0, 1} (reg 0) and 2c + 8 + {0, 1} (reg 1).
-template <int D>
-__global__ void __launch_bounds__(MmaBwdPlan<D>::THREADS, 2)
-flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ m,
-                          const float* __restrict__ l,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                          int KV, Masks mk) {
+//
+// One block of the dk / dv kernel, its 64 keys from blockIdx. DV: it
+// accumulates dv += P^T dO, DK: dk += dS^T Q. Both at D <= 128; under
+// SPLIT (D = 256) a block does one of them, and a dv block forms neither
+// dP^T nor dS^T nor reads V or D. P comes from p_ds in both, so a dv block
+// and a dk block use the same bits of P. (mk by value: by reference, the
+// D = 128 instance compiled to another, slower schedule.)
+template <int D, bool DV, bool DK>
+__device__ __forceinline__ void mma_dkdv_block(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int KV, Masks mk) {
   using Plan = MmaBwdPlan<D>;
   constexpr int THREADS = Plan::THREADS, BK = Plan::KV_BK, BQ = Plan::KV_BQ;
   constexpr int PITCH = Plan::PITCH;
@@ -672,8 +688,11 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.y * BK;  // key tile 0 of every (kv head, b) first
-  const int kvh = blockIdx.x % KV;
-  const int b = blockIdx.x / KV;
+  // under SPLIT blockIdx.x is 2 (b KV + kv head), + 1 for the dv block: a
+  // tile's dk block (three products to dv's two) launches before its dv
+  const unsigned kb = Plan::SPLIT ? blockIdx.x >> 1 : blockIdx.x;
+  const int kvh = kb % KV;
+  const int b = kb / KV;
   const int G = H / KV;
   const int Sq = mk.Sq, Sk = mk.Sk;
   const size_t q_stride = (size_t)H * D, k_stride = (size_t)KV * D;
@@ -709,7 +728,7 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
         const size_t r = ((size_t)b * Sq + row) * H + h;
         nm = m[r];
         nl = l[r];
-        nd = delta[r];
+        if constexpr (DK) nd = delta[r];
       }
     }
   };
@@ -724,7 +743,8 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
 
   // K, V and the first step in one group
   load_tile<D, BK, THREADS>(Ks, k + kv_off, k0, Sk, k_stride);
-  load_tile<D, BK, THREADS>(Vs, v + kv_off, k0, Sk, k_stride);
+  if constexpr (DK)
+    load_tile<D, BK, THREADS>(Vs, v + kv_off, k0, Sk, k_stride);
   if (n_steps > 0) {
     load_step(0, 0);
     fetch_rows(0);
@@ -786,7 +806,8 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
       const uint32_t q_b = smem_addr(Qs + qs * PITCH + b_lane);
       const uint32_t g_b = smem_addr(Gs + qs * PITCH + b_lane);
 
-      // S^T = K Q^T, dP^T = V dO^T (16 keys x QS queries a warp)
+      // S^T = K Q^T, dP^T = V dO^T (16 keys x QS queries a warp; a dv
+      // block leaves dP^T at 0)
       float s[NT][4], dp[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -796,7 +817,7 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t ka[4], va[4];
         ldmatrix_x4(ka, k_addr + kk * 32);
-        ldmatrix_x4(va, v_addr + kk * 32);
+        if constexpr (DK) ldmatrix_x4(va, v_addr + kk * 32);
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           const uint32_t off = (np * 16 * PITCH + kk * 16) * 2;
@@ -804,9 +825,11 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
           ldmatrix_x4(bf, q_b + off);
           mma_bf16(s[2 * np], ka, bf[0], bf[1]);
           mma_bf16(s[2 * np + 1], ka, bf[2], bf[3]);
-          ldmatrix_x4(bf, g_b + off);
-          mma_bf16(dp[2 * np], va, bf[0], bf[1]);
-          mma_bf16(dp[2 * np + 1], va, bf[2], bf[3]);
+          if constexpr (DK) {
+            ldmatrix_x4(bf, g_b + off);
+            mma_bf16(dp[2 * np], va, bf[0], bf[1]);
+            mma_bf16(dp[2 * np + 1], va, bf[2], bf[3]);
+          }
         }
       }
 
@@ -837,10 +860,14 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
                cc ? dj.y : dj.x, keep, mk, p[e], ds[e]);
         }
         const int r = (j & 1) * 2;
-        split_bf16(p[0], p[1], ph[j / 2][r], pl[j / 2][r]);
-        split_bf16(p[2], p[3], ph[j / 2][r + 1], pl[j / 2][r + 1]);
-        split_bf16(ds[0], ds[1], sh[j / 2][r], sl[j / 2][r]);
-        split_bf16(ds[2], ds[3], sh[j / 2][r + 1], sl[j / 2][r + 1]);
+        if constexpr (DV) {
+          split_bf16(p[0], p[1], ph[j / 2][r], pl[j / 2][r]);
+          split_bf16(p[2], p[3], ph[j / 2][r + 1], pl[j / 2][r + 1]);
+        }
+        if constexpr (DK) {
+          split_bf16(ds[0], ds[1], sh[j / 2][r], sl[j / 2][r]);
+          split_bf16(ds[2], ds[3], sh[j / 2][r + 1], sl[j / 2][r + 1]);
+        }
       }
 
       // dv += P^T dO, dk += dS^T Q (16 keys x D), hi then lo
@@ -852,16 +879,20 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
         for (int dp2 = 0; dp2 < D / 16; ++dp2) {
           const uint32_t off = (kk * 16 * PITCH + dp2 * 16) * 2;
           uint32_t bf[4];
-          ldmatrix_x4_trans(bf, g_t + off);
-          mma_bf16(adv[2 * dp2], ph[kk], bf[0], bf[1]);
-          mma_bf16(adv[2 * dp2], pl[kk], bf[0], bf[1]);
-          mma_bf16(adv[2 * dp2 + 1], ph[kk], bf[2], bf[3]);
-          mma_bf16(adv[2 * dp2 + 1], pl[kk], bf[2], bf[3]);
-          ldmatrix_x4_trans(bf, q_t + off);
-          mma_bf16(adk[2 * dp2], sh[kk], bf[0], bf[1]);
-          mma_bf16(adk[2 * dp2], sl[kk], bf[0], bf[1]);
-          mma_bf16(adk[2 * dp2 + 1], sh[kk], bf[2], bf[3]);
-          mma_bf16(adk[2 * dp2 + 1], sl[kk], bf[2], bf[3]);
+          if constexpr (DV) {
+            ldmatrix_x4_trans(bf, g_t + off);
+            mma_bf16(adv[2 * dp2], ph[kk], bf[0], bf[1]);
+            mma_bf16(adv[2 * dp2], pl[kk], bf[0], bf[1]);
+            mma_bf16(adv[2 * dp2 + 1], ph[kk], bf[2], bf[3]);
+            mma_bf16(adv[2 * dp2 + 1], pl[kk], bf[2], bf[3]);
+          }
+          if constexpr (DK) {
+            ldmatrix_x4_trans(bf, q_t + off);
+            mma_bf16(adk[2 * dp2], sh[kk], bf[0], bf[1]);
+            mma_bf16(adk[2 * dp2], sl[kk], bf[0], bf[1]);
+            mma_bf16(adk[2 * dp2 + 1], sh[kk], bf[2], bf[3]);
+            mma_bf16(adk[2 * dp2 + 1], sl[kk], bf[2], bf[3]);
+          }
         }
     }
     // the next step's row statistics into the other stage (every warp is
@@ -875,15 +906,45 @@ flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
     const int col = j * 8 + c2;
     if (kpos0 < Sk) {
       const size_t off = kv_off + (size_t)kpos0 * k_stride + col;
-      *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(adk[j][0], adk[j][1]);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(adv[j][0], adv[j][1]);
+      if constexpr (DK)
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(adk[j][0], adk[j][1]);
+      if constexpr (DV)
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            pack_bf16(adv[j][0], adv[j][1]);
     }
     if (kpos1 < Sk) {
       const size_t off = kv_off + (size_t)kpos1 * k_stride + col;
-      *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(adk[j][2], adk[j][3]);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(adv[j][2], adv[j][3]);
+      if constexpr (DK)
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(adk[j][2], adk[j][3]);
+      if constexpr (DV)
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            pack_bf16(adv[j][2], adv[j][3]);
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MmaBwdPlan<D>::THREADS, 2)
+flash_bwd_mma_dkdv_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                          int KV, Masks mk) {
+  if constexpr (!MmaBwdPlan<D>::SPLIT)
+    mma_dkdv_block<D, true, true>(q, k, v, dout, m, l, delta, dk, dv, H, KV,
+                                  mk);
+  else if (blockIdx.x & 1)
+    mma_dkdv_block<D, true, false>(q, k, v, dout, m, l, delta, dk, dv, H,
+                                   KV, mk);
+  else
+    mma_dkdv_block<D, false, true>(q, k, v, dout, m, l, delta, dk, dv, H,
+                                   KV, mk);
 }
 
 template <int D>
@@ -1074,7 +1135,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   const int q_tiles = (mk.Sq + Plan::Q_BQ - 1) / Plan::Q_BQ;
   const int k_tiles = (mk.Sk + Plan::KV_BK - 1) / Plan::KV_BK;
   if (q_tiles > 65535 || k_tiles > 65535 ||
-      (long long)B * H > 0x7fffffffLL)
+      (long long)B * H * (Plan::SPLIT ? 2 : 1) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
@@ -1101,7 +1162,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* gt = static_cast<const bf16*>(dout);
   flash_bwd_mma_dkdv_kernel<D>
-      <<<dim3(B * KV, k_tiles), Plan::THREADS, Plan::KV_SMEM, stream>>>(
+      <<<dim3((Plan::SPLIT ? 2 : 1) * B * KV, k_tiles), Plan::THREADS,
+          Plan::KV_SMEM, stream>>>(
           qt, kt, vt, gt, m, l, delta, static_cast<bf16*>(dk),
           static_cast<bf16*>(dv), H, KV, mk);
   err = cudaGetLastError();
@@ -1118,8 +1180,8 @@ int dispatch_f32(const void* q, const void* k, const void* v,
                  int H, int KV, int D, const Masks& mk, cudaStream_t stream) {
 #define BWD_CASE(DD)                                                          \
   case DD:                                                                    \
-    return launch<DD, float>(q, k, v, dout, m, l, delta, dq, dk, dv, B, H,    \
-                             KV, mk, stream);
+    return launch<DD>(q, k, v, dout, m, l, delta, dq, dk, dv, B, H, KV, mk,   \
+                      stream);
   switch (D) {
     BWD_CASE(16)
     BWD_CASE(32)
@@ -1134,7 +1196,7 @@ int dispatch_f32(const void* q, const void* k, const void* v,
 #undef BWD_CASE
 }
 
-// bf16: the tensor-core kernels at D <= 128, the CUDA-core ones at 256
+// bf16: the tensor-core kernels at every head dim
 int dispatch_bf16(const void* q, const void* k, const void* v,
                   const void* dout, const float* m, const float* l,
                   const float* delta, void* dq, void* dk, void* dv, int B,
@@ -1151,9 +1213,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v,
     BWD_CASE(64)
     BWD_CASE(80)
     BWD_CASE(128)
-    case 256:
-      return launch<256, bf16>(q, k, v, dout, m, l, delta, dq, dk, dv, B, H,
-                               KV, mk, stream);
+    BWD_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,13 +15,16 @@ Forward: bfloat16 inputs go to the tensor-core kernel (``mma.sync``, bf16
 products with f32 accumulation), float32 inputs to the f32 kernel on the
 CUDA cores (the reference's f32 tolerance rules out TF32). Either also
 writes the f32 row statistics (m, l) when asked. Backward, deterministic
-(no atomics): bfloat16 at head dims up to 128 on the tensor cores (P and
-dS split into two bf16 operands each; at D = 128 the dk / dv kernel forms
-its scores 16 queries at a time, below it a whole 64-query step at once;
-at D = 80 and 128 the dq kernel walks 32-key tiles at 3 blocks an SM,
-below 64-key tiles at 2: the plans that keep their accumulators in
-registers, chosen from ``ptxas -v`` and ``tune_flash_bwd``),
-float32 and bfloat16 at head dim 256 on the CUDA cores in f32.
+(no atomics): bfloat16 at every backward head dim on the tensor cores (P
+and dS split into two bf16 operands each; at D = 128 the dk / dv kernel
+forms its scores 16 queries at a time, below it a whole 64-query step at
+once; at D = 80 and 128 the dq kernel walks 32-key tiles at 3 blocks an
+SM, below 64-key tiles at 2; at D = 256 the dk / dv launch gives dk and
+dv blocks of their own on each 64-key tile (128 accumulators a thread
+each) and walks q steps of 16 rows, and dq walks 16-key tiles, both at
+about 100 KB of shared memory and 2 blocks an SM: the plans that keep
+their accumulators in registers, chosen from ``ptxas -v`` and
+``tune_flash_bwd``), float32 on the CUDA cores.
 
 Gradient: a tensor that needs a gradient goes through ``_FlashFunction``,
 the counterpart of the reference's custom VJP: its forward launches the

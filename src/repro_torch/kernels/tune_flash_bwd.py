@@ -1,6 +1,7 @@
 """Time variants of the bf16 tensor-core flash backward on one CUDA card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune_flash_bwd [--head-dim 80]
+    PYTHONPATH=src python -m repro_torch.kernels.tune_flash_bwd \
+        [--head-dim 80|128|256]
 
 ``csrc/flash_attention_bwd.cu`` fixes its tiles in ``MmaBwdPlan``. This script
 builds copies of that source with one plan constant changed (the dk / dv
@@ -10,8 +11,10 @@ of ``ex2.approx``, prints the registers and spills of each instance at the
 head dim asked for, and holds each against the committed kernels at that
 head dim's training shape (``SHAPES``: D = 128, the default, starcoder2-3b's
 B=8, S=2048, H=24, KV=2; D = 80, h2o-danube-1.8b's B=8, S=2048, H=32, KV=8,
-window 4096; bf16, causal): bit for bit where only the tiles change, within
-one bf16 ulp of the plain backward for ``expf``.
+window 4096; D = 256, recurrentgemma-9b's B=8, S=2048, H=16, KV=1, window
+2048; bf16, causal): bit for bit where only the tiles change, within one
+bf16 ulp of the plain backward for ``expf``. A tile variant is built only
+for the head dims whose plan it changes (``HEAD_DIMS``).
 Two probes compute wrong gradients on purpose (no exp; no "lo" half of the
 split products of P and dS) to show what the per-element work and the split
 cost; they are timed only. Times: CUDA events over 10 calls, three rounds in
@@ -33,12 +36,13 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as fa
 
 # head dim -> (B, S, H, KV, window), causal
-SHAPES = {128: (8, 2048, 24, 2, 0), 80: (8, 2048, 32, 8, 4096)}
+SHAPES = {128: (8, 2048, 24, 2, 0), 80: (8, 2048, 32, 8, 4096),
+          256: (8, 2048, 16, 1, 2048)}
 TOL = 8e-3                             # one bf16 ulp, as chip_smoke.py holds it
-KV_BQ = "static constexpr int KV_BQ = 64;"
+KV_BQ = "static constexpr int KV_BQ = D > 128 ? 16 : 64;"
 KV_QS = "static constexpr int KV_QS = D == 128 ? 16 : KV_BQ;"
-Q_BK = "static constexpr int Q_BK = D >= 80 ? 32 : 64;"
-Q_BLOCKS = "static constexpr int Q_BLOCKS = D >= 80 ? 3 : 2;"
+Q_BK = "static constexpr int Q_BK = D > 128 ? 16 : D >= 80 ? 32 : 64;"
+Q_BLOCKS = "static constexpr int Q_BLOCKS = D > 128 ? 2 : D >= 80 ? 3 : 2;"
 EX2 = "p = keep ? ex2(fmaf(x, LOG2E, -rm)) * rli : 0.f;"
 LO_PRODUCTS = [f"mma_bf16({acc}[2 * dp2{j}], {lo}[kk], bf[{b0}], bf[{b1}]);"
                for acc, lo in (("adv", "pl"), ("adk", "sl"), ("acc", "sl"))
@@ -50,13 +54,24 @@ VARIANTS = {
     "scores of a whole q step at once": (
         {KV_QS: "static constexpr int KV_QS = KV_BQ;"}, "bits"),
     "scores 32 queries at a time": (
-        {KV_QS: "static constexpr int KV_QS = 32;"}, "bits"),
+        {KV_QS: "static constexpr int KV_QS = D > 128 ? KV_BQ : 32;"},
+        "bits"),
     "scores 16 queries at a time": (
         {KV_QS: "static constexpr int KV_QS = 16;"}, "bits"),
     "dq 64-key tiles, 2 blocks an SM": (
         {Q_BK: Q_BK.replace("32", "64"),
          Q_BLOCKS: Q_BLOCKS.replace("3", "2")}, "bits"),
     "dq 2 blocks an SM": ({Q_BLOCKS: Q_BLOCKS.replace("3", "2")}, "bits"),
+    # D = 256: a 32-row q step (1 block an SM: 135,936 bytes), its scores
+    # 32 or 16 queries at a time; dq 32-key tiles (1 block: 135,168 bytes)
+    "d256 q step 32": ({KV_BQ: KV_BQ.replace("16", "32")}, "bits"),
+    "d256 q step 32, scores 16 queries at a time": (
+        {KV_BQ: KV_BQ.replace("16", "32"),
+         KV_QS: "static constexpr int KV_QS = D >= 128 ? 16 : KV_BQ;"},
+        "bits"),
+    "d256 dq 32-key tiles, 1 block an SM": (
+        {Q_BK: Q_BK.replace("? 16", "? 32"),
+         Q_BLOCKS: Q_BLOCKS.replace("? 2 :", "? 1 :")}, "bits"),
     "expf (and m not scaled by log2 e)": (
         {EX2: "p = keep ? expf(x - rm) * rli : 0.f;",
          "rv[tid] = nok ? nm * LOG2E : 0.f;": "rv[tid] = nok ? nm : 0.f;",
@@ -64,6 +79,9 @@ VARIANTS = {
     "probe: no exp": ({EX2: "p = keep ? x * rli : 0.f;"}, None),
     "probe: no lo products": ({line: "" for line in LO_PRODUCTS}, None),
 }
+# the head dims whose plan a tile variant changes (the others: every one)
+HEAD_DIMS = {name: (256,) if name.startswith("d256") else (80, 128)
+             for name, (_, check) in VARIANTS.items() if check == "bits"}
 
 
 def _build(d):
@@ -74,6 +92,8 @@ def _build(d):
     text = (build.CSRC / "flash_attention_bwd.cu").read_text()
     procs = {}
     for i, (name, (subs, _)) in enumerate(VARIANTS.items()):
+        if d not in HEAD_DIMS.get(name, (d,)):
+            continue
         src = text
         for old, new in subs.items():
             if old not in src:
