@@ -46,7 +46,13 @@ Phases; any failure exits non-zero:
      blocks' edges (gemma3-4b's 8 / 4 heads with its 1024 window at a
      ragged S, a q offset, non-causal Sq != Sk, softcap) and at
      recurrentgemma-9b's attention over 8 x 2048 tokens (two launches
-     bit-identical). Head dim 64
+     bit-identical). The backward at head dim 192 on the D = 192 cases in
+     f32 (2e-5) and bf16 (one bf16 ulp), on bf16 cases at its dk and dv
+     blocks' edges with MLA's heads (a q offset with Sq < Sk, non-causal
+     Sq != Sk, V and dO zero in their last 64 columns, where dv must come
+     out exactly zero) and at deepseek-v3-671b's training calls (4, 2048,
+     128, 128, 192) and (4, 2047, ...) with V padded, two launches
+     bit-identical at each. Head dim 64
      without a causal mask in f32 and bf16: Sk ragged in the 64-key tiles,
      with Sq = Sk and Sq != Sk; whisper-large-v3's three prefill shapes in
      bf16 (the encoder's (4, 1500, 20, 64) and the decoder's cross shape of
@@ -86,7 +92,7 @@ Phases; any failure exits non-zero:
      the flash forward and backward (head dim 128) run once a layer in
      every step, quantize / dequantize once for each int8 leaf.
   3f. the sixth path, the serving restart of slice 6: h2o-danube-1.8b at
-     full width and full depth (24 of 24 layers) from a params-only
+     full width, depth cut to 4 of its 24 layers, from a params-only
      checkpoint, 3 request batches of 4 prompts of 5120 tokens (past its
      4096-token window); the flash forward at head dim 80 runs once a layer
      in every prefill.
@@ -99,12 +105,19 @@ Phases; any failure exits non-zero:
      FFN (sorted capacity dispatch, expert products in torch.bmm) in every
      prefill and decode step; a profile of the prefill splits the MoE FFN's
      device time into its products and its dispatch and combine.
-  3h. the eighth path, slice 8: deepseek-v3-671b at full width (MLA: 128
-     heads, q_lora 1536, kv_lora 512, q / k head dim 128 + 64, v 128; 256
-     experts at top-8 and a shared expert; vocab 129280). Part A: one
-     mla_dense layer with the MTP module (3.12 G params) restarts from a
-     params-only checkpoint through 4 servers of 8 GiB and serves 3
-     request batches of 4 prompts of 4096 tokens. Part B: one mla_dense
+  3h. the eighth and tenth paths, slices 8 and 10: deepseek-v3-671b at full
+     width (MLA: 128 heads, q_lora 1536, kv_lora 512, q / k head dim
+     128 + 64, v 128; 256 experts at top-8 and a shared expert; vocab
+     129280). Part A (slice 10): one mla_dense layer with the MTP module
+     (its layer mla_dense too; 3.12 G params) trains with Adafactor and the
+     MTP loss through ``train_loop`` on batches of 4 x 2048 tokens: run A 4
+     steps; run B 2 steps, an unquantized checkpoint (12.51 GB) through 4
+     servers of 8 GiB, no kill, a restore into a state drawn from another
+     seed, 2 more steps, equal to run A bit for bit; the flash forward and
+     backward at head dim 192 run twice a step (the trunk's layer over
+     2048 tokens, the MTP layer over 2047); then 3 request batches of 4
+     prompts of 4096 tokens are served from run B's params and from run
+     A's (equal tokens). Part B: one mla_dense
      and one mla_moe layer without MTP (13.94 G params, 27.89 GB) are drawn
      on the card from the seed (a restart through the buffer would hold
      3 x 27.89 GB on the card and ~4.75 x on the host), serve the same
@@ -113,22 +126,24 @@ Phases; any failure exits non-zero:
      flash forward at head dim 192 runs once an MLA layer in every
      prefill.
   3i. the ninth path, the serving restart of slice 9: whisper-large-v3 at
-     full width and depth (32 enc and 32 cross layers, d_model 1280, 20
-     heads at head dim 64, 1.58 G params) from a params-only checkpoint
+     full width (d_model 1280, 20 heads at head dim 64), depth cut to 4 enc
+     and 4 cross layers of its 32 + 32, from a params-only checkpoint
      over 4 servers of 4 GiB, 3 request batches of 4 x 1500 frames (30 s of
      audio from the stub frontend, drawn from the seed) and 224-token
      prompts, 32 new tokens; each prefill runs the flash forward once an
      enc layer (non-causal over the frames) and twice a cross layer (causal
-     over the prompt, non-causal over the frames): 288 launches; a profile
+     over the prompt, non-causal over the frames): 36 launches; a profile
      of the prefill splits the encoder's device time from the decoder's,
      one of a decode step the attention over the context cache.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
      (serving), step time, tokens/s, save / flush / restore-after-kill and
-     int8 save / flush / restore seconds (slices 4 and 5) and the optimizer
-     update's own seconds (training; xlstm-350m's step times are its run
-     A's and its step is not traced: its sLSTM loop makes a trace of it take
-     ~30 s), a device profile; then a JSON
+     int8 save / flush / restore seconds (slices 4 and 5; slice 10: save /
+     flush / restore without a kill) and the optimizer update's own seconds
+     (training; xlstm-350m's step times are its run A's and its step is
+     not traced: its sLSTM loop makes a trace of it take ~30 s), a device
+     profile (training: the flash forward's and backward's share of a
+     step's busy time); then a JSON
      line with each
      kernel's launches, time, bound, plain-version time and the time of one
      PyTorch library call for the same function.
@@ -306,11 +321,14 @@ DS_DRAM = 8 << 30     # ~1.86 GiB a server: 2 x ~4 GB over 4 (XL_DRAM)
 DS_TRAIN_ATTN_CASE = (DS_BATCH, DS_SEQ, DS_SEQ, 56, 8, 128, True, 0, 0.0, 0,
                       "bfloat16", D256_BF16_TOL)
 DS_TRAIN_FWD_CASE = DS_TRAIN_ATTN_CASE[:11] + (3e-2,)
-# slice 6: h2o-danube-1.8b serving at full width and depth, a prompt past
+# slice 6: h2o-danube-1.8b serving at full width, a prompt past
 # its 4096-token window; head dim 2560 / 32 = 80
 H2O_BATCH, H2O_PROMPT, H2O_GEN, H2O_REQUESTS = 4, 5120, 32, 3
 H2O_WINDOW, H2O_HEADS, H2O_KV, H2O_HEAD_DIM = 4096, 32, 8, 80
-H2O_DRAM = 4 << 30    # ~1.83 GB a server: ~3.66 GB at replication 2 over 4
+# depth cut from 24 layers for time: with all 24 (and whisper's 32 + 32)
+# the whole run took 1134.1 s of its 1200 on one H100 host
+H2O_LAYERS = 4
+H2O_DRAM = 4 << 30    # at most ~1.83 GB a server (3.66 GB at full depth)
 # head dim 80 in f32 (2e-5) and bf16 (the reference's 3e-2) at GQA 4: a
 # window of 40 whose edge falls inside the 64-key tiles of a ragged S, and
 # a q offset with Sq < Sk (the last 72 queries of 200 keys); the h2o
@@ -357,13 +375,26 @@ P_ROUND_SIGMAS = 8
 # broadcast to every head)
 DS3_BATCH, DS3_PROMPT, DS3_GEN, DS3_REQUESTS = 4, 4096, 32, 3
 DS3_HEADS, DS3_HEAD_DIM = 128, 192
-# part A: one mla_dense layer (and the MTP module the checkpoint carries)
-# through the burst buffer; part B: one layer of each kind, no MTP, built
-# on the card (its 27.89 GB would need 3 x on the card and ~4.75 x on the
-# host to go through the buffer)
+# part A (slice 10): one mla_dense layer and the MTP module (its layer
+# mla_dense too) trains through the burst buffer, then serves; part B: one
+# layer of each kind, no MTP, built on the card (its 27.89 GB would need
+# 3 x on the card and ~4.75 x on the host to go through the buffer)
 DS3_SEGMENTS_A = ((("mla_dense",), 1),)
 DS3_SEGMENTS_B = ((("mla_dense",), 1), (("mla_moe",), 1))
-DS3_DRAM = 8 << 30    # ~1.45 GiB a server at replication 2 over 4 (6.25 GB)
+# ~5.82 GiB a server at replication 2 over 4 (part A's 12.51 GB training
+# checkpoint: bf16 params and m, f32 vr and vc), all in DRAM
+DS3_DRAM = 8 << 30
+# slice 10: part A trains with Adafactor and the MTP loss on batches of
+# 4 x 2048 tokens (8 would pass the card's 80 GB: a step alone holds 49
+# GB at 4, both heads' logits over 129280 entries among it, beside run A's
+# train state of 12.5 GB); run A 4 steps, run
+# B 2 + 2 around a restore without a kill (a kill at 12.51 GB waits on the
+# host's memory). A step launches the flash forward and backward at head
+# dim 192 twice: the trunk's layer over 2048 tokens and the MTP layer over
+# 2047 (positions 1 .. S-1, ragged in every 64-row and 64-key tile), V and
+# dO zero in their last 64 columns as models/mla.py pads V from 128
+DS3_TRAIN_BATCH, DS3_TRAIN_SEQ, DS3_TRAIN_STEPS = 4, 2048, 4
+DS3_V_PAD = 64
 # head dim 192 in f32 (2e-5) and bf16 (the reference's 3e-2), MLA's heads
 # (as many kv heads as q heads): a causal case, a ragged Sk without a mask
 # (Sq != Sk, 200 keys ragged in the 64- and 32-key tiles) and a q offset
@@ -387,13 +418,15 @@ DS3_PREFILL_CASE = (DS3_BATCH, DS3_PROMPT, DS3_PROMPT, DS3_HEADS, DS3_HEADS,
 # relative L2 error a row (``absorbed_decode_check``): bf16 at full width,
 # 8 bf16 unit roundoffs (2^-8 each); PERF.md, slice 8, derives it
 MLA_DECODE_TOL = 8 * 2.0 ** -8
-# slice 9: whisper-large-v3 serving at full width and depth: 3 requests of
+# slice 9: whisper-large-v3 serving at full width: 3 requests of
 # 4 x 30 s of audio (the stub frontend's 1500 frames of 1280, drawn from the
 # seed) and a 224-token prompt (previous-text conditioning, half its
 # 448-token decoder context), 32 new tokens; MHA at head dim 64
 WH_BATCH, WH_PROMPT, WH_GEN, WH_REQUESTS = 4, 224, 32, 3
 WH_FRAMES, WH_HEADS, WH_HEAD_DIM = 1500, 20, 64
-WH_DRAM = 4 << 30     # ~1.47 GiB a server at replication 2 over 4 (3.16 GB)
+# depth cut from 32 enc + 32 cross layers for time, as H2O_LAYERS
+WH_LAYERS = 4
+WH_DRAM = 4 << 30     # at most ~1.47 GiB a server (3.16 GB at full depth)
 # head dim 64 without a causal mask in f32 (2e-5) and bf16 (the reference's
 # 3e-2): Sk ragged in the 64-key tiles (220 = 3 x 64 + 28, as 1500 = 23 x 64
 # + 28) with Sq = Sk, and with Sq != Sk (90 queries, ragged in the 64-row
@@ -421,14 +454,37 @@ P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE, WH_ENC_CASE,
 # dim 256
 RG_TRAIN_ATTN_CASE = (8, 2048, 2048, RG_HEADS, 1, RG_HEAD_DIM, True,
                       RG_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
+# slice 10's flash calls in a train step, V (and dO) padded: the trunk's
+# layer over 2048 tokens, the MTP layer over 2047; the forward (with row
+# statistics) held like the prefill's, per element
+DS3_TRAIN_ATTN_CASE = (DS3_TRAIN_BATCH, DS3_TRAIN_SEQ, DS3_TRAIN_SEQ,
+                       DS3_HEADS, DS3_HEADS, DS3_HEAD_DIM, True, 0, 0.0, 0,
+                       "bfloat16", D256_BF16_TOL)
+DS3_MTP_ATTN_CASE = (DS3_TRAIN_BATCH, DS3_TRAIN_SEQ - 1,
+                     DS3_TRAIN_SEQ - 1) + DS3_TRAIN_ATTN_CASE[3:]
+P_ROUND_CASES += (DS3_TRAIN_ATTN_CASE,)
+# the bf16 D = 192 backward at its dk and dv blocks' edges with MLA's heads
+# (a kv head for each query head): a q offset with Sq < Sk, non-causal
+# Sq != Sk, and V and dO zero in their last 64 columns (as the MLA pads V;
+# dv's padded columns must come out exactly zero) at a ragged S
+D192_PADDED_CASE = (1, 200, 200, 8, 8, DS3_HEAD_DIM, True, 0, 0.0, 0,
+                    "bfloat16", D256_BF16_TOL)
+BWD_EDGE_CASES += [
+    (1, 72, 200, 8, 8, DS3_HEAD_DIM, True, 0, 0.0, 128, "bfloat16",
+     D256_BF16_TOL),
+    (1, 96, 130, 8, 8, DS3_HEAD_DIM, False, 0, 0.0, 0, "bfloat16",
+     D256_BF16_TOL),
+    D192_PADDED_CASE]
+# the backward cases whose V and dO are zero in their last DS3_V_PAD columns
+V_PADDED_CASES = (D192_PADDED_CASE, DS3_TRAIN_ATTN_CASE, DS3_MTP_ATTN_CASE)
 # the training shapes, where two launches must be bit-identical
 TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE,
-                RG_TRAIN_ATTN_CASE)
+                RG_TRAIN_ATTN_CASE, DS3_TRAIN_ATTN_CASE, DS3_MTP_ATTN_CASE)
 
 BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
                           else D256_BF16_TOL,)
-             for case in ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES] \
-    + BWD_EDGE_CASES + list(TRAIN_SHAPES)
+             for case in ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES
+             + D192_CASES] + BWD_EDGE_CASES + list(TRAIN_SHAPES)
 
 
 def bwd_kernels(case):
@@ -510,20 +566,30 @@ PORT_KERNEL = re.compile(
     r"\w*kernel\b")
 
 
-def device_kernels(fn, want, tag, observations=3):
+def _profiler_warmup():
+    """A small kernel of PyTorch's, launched in each profiled window before
+    the call it observes: the records the profiler dropped were always of
+    a window's first kernels (a flash backward's D pre-pass, and once its
+    dk / dv kernel too; the pre-pass in three observations in a row in one
+    run), and this one is not the port's."""
+    import torch
+    torch.ones(1, device="cuda").add_(1)
+
+
+def device_kernels(fn, want, tag, observations=5):
     """``fn()`` and the sorted labels of the port's kernels it launched
-    (torch.profiler). The profiler at times drops a launch's records (a
-    flash backward's delta and dk/dv kernels once in phase 2, in one run
-    of several): while what it recorded is a strict part of ``want``, the
-    same deterministic call is profiled again, up to ``observations`` in
-    all. A kernel outside ``want`` is never a dropped record, and the
-    caller's check fails on it at once."""
+    (torch.profiler), each window opened by ``_profiler_warmup``. The
+    profiler at times drops a launch's records: while what it recorded is
+    a strict part of ``want``, the same deterministic call is profiled
+    again, up to ``observations`` in all. A kernel outside ``want`` is
+    never a dropped record, and the caller's check fails on it at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     out = None
     for i in range(observations):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _profiler_warmup()
             result = fn()
             torch.cuda.synchronize()
         out = result if out is None else out
@@ -710,14 +776,16 @@ def _p_rounding_atol(q, k, v, *, causal, window, q_offset=0):
 
 def check_flash_bwd():
     """The flash backward kernel against its plain version on every case of
-    BWD_CASES, fed the same q, k, v, dO and the forward kernel's o, m, l;
-    the stats-emitting forward against the stats-free one (o bit for bit)
-    and its m, l against the plain forward's; at each training shape
-    (TRAIN_SHAPES) two launches bit-identical, and at slice 4's autograd
-    through the kernel's Function equal to the backward kernel on the saved
-    tensors. Returns {training shape: (max error, the device kernels it
-    ran)}. The inputs come from a generator of their own, so these cases do
-    not move the other kernels' inputs."""
+    BWD_CASES, fed the same q, k, v, dO and the forward kernel's o, m, l
+    (V and dO zero in their last DS3_V_PAD columns for V_PADDED_CASES,
+    whose dv must be exactly zero there); the stats-emitting forward
+    against the stats-free one (o bit for bit) and its m, l against the
+    plain forward's; at each training shape (TRAIN_SHAPES) two launches
+    bit-identical, and at slice 4's autograd through the kernel's Function
+    equal to the backward kernel on the saved tensors. Returns {training
+    shape: (max error, the device kernels it ran)}. The inputs come from a
+    generator of their own, so these cases do not move the other kernels'
+    inputs."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
@@ -731,6 +799,9 @@ def check_flash_bwd():
                     q_offset=q_offset)
         q, k, v = _attn_inputs(case, gen)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        if case in V_PADDED_CASES:
+            v[..., -DS3_V_PAD:] = 0
+            do[..., -DS3_V_PAD:] = 0
         o_free = fa.flash_attention(q, k, v, **opts)
         o, m, l = fa.flash_attention(q, k, v, return_stats=True, **opts)
         _, pm, pl = ops.flash_chunked(q, k, v, return_stats=True, **opts)
@@ -750,6 +821,11 @@ def check_flash_bwd():
         torch.cuda.synchronize()
         e = max(_within(f"{tag} {name}", g, pg, tol)
                 for name, g, pg in zip(("dq", "dk", "dv"), grads, plain))
+        if case in V_PADDED_CASES:
+            zero = not grads[2][..., -DS3_V_PAD:].any().item()
+            print(f"{tag}: V and dO zero in their last {DS3_V_PAD} columns; "
+                  f"dv zero there: {zero}", flush=True)
+            check(zero, f"flash_bwd {case}: dv's padded columns not zero")
         del plain, pm, pl, o_free
         if case in TRAIN_SHAPES:
             results[case] = (e, ran)
@@ -827,6 +903,7 @@ def check_kernels(gen):
             LL_PREFILL_CASE: "flash_attention_llama4",
             LL_NOPE_CASE: "flash_attention_llama4_nope",
             DS3_PREFILL_CASE: "flash_attention_mla",
+            DS3_TRAIN_ATTN_CASE: "flash_attention_train_mla",
             WH_ENC_CASE: "flash_attention_whisper",
             WH_CROSS_CASE: "flash_attention_whisper_cross",
             WH_SELF_CASE: "flash_attention_whisper_self"}
@@ -855,8 +932,12 @@ def check_kernels(gen):
     for case, name in ((TRAIN_ATTN_CASE, "flash_attention_bwd"),
                        (DS_TRAIN_ATTN_CASE, "flash_attention_bwd_dsc"),
                        (H2O_TRAIN_ATTN_CASE, "flash_attention_bwd_d80"),
-                       (RG_TRAIN_ATTN_CASE, "flash_attention_bwd_d256")):
+                       (RG_TRAIN_ATTN_CASE, "flash_attention_bwd_d256"),
+                       (DS3_TRAIN_ATTN_CASE, "flash_attention_bwd_mla")):
         err[name], bwd_ran[name] = results[case]
+    # the MTP layer's 2047 tokens: the same row
+    err["flash_attention_bwd_mla"] = max(err["flash_attention_bwd_mla"],
+                                         results[DS3_MTP_ATTN_CASE][0])
 
     err["rg_lru"] = check_rg_lru()
 
@@ -1112,19 +1193,21 @@ def _kernels():
 
 
 def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
-                     int8=True):
+                     int8=True, kill=True, keep_states=False):
     """A training path through ``launch/train.py::train_loop`` (slice 3's
     xlstm-350m, slice 4's starcoder2-3b), deterministic on the card: run A
     takes ``steps`` steps of ``batch`` x ``seq`` tokens; run B takes half of
     them, checkpoints unquantized into a burst buffer of 4 servers of
-    ``dram_capacity`` bytes each, loses server/0, restores from the
-    replicas into a state drawn from another seed and takes the rest. B
-    must equal A bit for bit. With ``int8``, A's final state then makes an
-    int8-moment checkpoint in a fresh burst buffer, restored onto the card.
+    ``dram_capacity`` bytes each, waits for the flush, loses server/0
+    (``kill``; without it every server stays up), restores into a state
+    drawn from another seed and takes the rest. B must equal A bit for bit.
+    With ``int8``, A's final state then makes an int8-moment checkpoint in a
+    fresh burst buffer, restored onto the card.
 
-    Returns (timings, launches, n_quant); launches are the kernel counts of
-    the whole path, n_quant the int8 leaves (0 without ``int8``). Raises
-    SystemExit on any mismatch."""
+    Returns (timings, launches, n_quant, states); launches are the kernel
+    counts of the whole path, n_quant the int8 leaves (0 without ``int8``),
+    states (run A's final state, run B's) with ``keep_states``, else None.
+    Raises SystemExit on any mismatch."""
     import torch
     from repro_torch.checkpoint import serializer as ser
     from repro_torch.checkpoint.bbckpt import BBCheckpointManager
@@ -1138,8 +1221,14 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
     t = {}
     half = steps // 2
     kw = dict(global_batch=batch, seq_len=seq, log_every=1, device=device)
+    # without a kill, the serving paths' ping cadence: a 12.51 GB flush
+    # stalled two servers' loops long enough at the default to be declared
+    # dead (SERVE_STABILIZE_S)
     bbcfg = BBConfig(num_servers=4, num_clients=4,
-                     dram_capacity=dram_capacity)
+                     dram_capacity=dram_capacity,
+                     **({} if kill else
+                        {"stabilize_interval": SERVE_STABILIZE_S}))
+    restore_how = "after the kill" if kill else "with every server up"
     host_step(f"{cfg.name}: run A")
     state_a, hist_a, _ = train_loop(cfg, steps=steps, ckpt_every=0,
                                     seed=SEED, **kw)
@@ -1149,28 +1238,42 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
                                           ckpt_every=half - 1, bb_system=bb,
                                           quantize_ckpt=False, seed=SEED,
                                           **kw)
+        # the saved state's digest, not the state: a second train state on
+        # the card through the resume is 12.5 GB at deepseek-v3's cut
+        saved = _digests(saved_b.params, saved_b.opt_state)
+        del saved_b
         t["save_s"] = mgr.metrics[half - 1]["ingest_s"]
         t["ckpt_bytes"] = mgr.metrics[half - 1]["bytes"]
-        t["flush_s"] = mgr.metrics[half - 1].get("flush_s")
-        bb.kill_server("server/0")
-        host_step(f"{cfg.name}: failure handling after the kill")
-        settle_s = t["settle_s"] = settle_after_kill(bb, "server/0")
-        handled = (f"the buffer handled it in {settle_s:.1f}s (the manager "
-                   f"counts it dead, the survivors' queues empty for "
-                   f"{SETTLE_QUIET_S:.0f}s)" if settle_s is not None else
-                   f"the buffer was still busy after {SETTLE_TIMEOUT_S:.0f}s")
-        print(f"[main] killed server/0; {handled}; restoring from its "
-              f"replicas into a state drawn from seed {SEED + 1}",
-              flush=True)
+        t["flush_s"] = wait_flushed(mgr, half - 1)
+        check(mgr.metrics[half - 1].get("flushed"), f"the checkpoint was "
+              f"not durable on the PFS after {t['flush_s']} s")
+        t["settle_s"] = None
+        if kill:
+            bb.kill_server("server/0")
+            host_step(f"{cfg.name}: failure handling after the kill")
+            settle_s = t["settle_s"] = settle_after_kill(bb, "server/0")
+            handled = (f"the buffer handled it in {settle_s:.1f}s (the "
+                       f"manager counts it dead, the survivors' queues "
+                       f"empty for {SETTLE_QUIET_S:.0f}s)"
+                       if settle_s is not None else
+                       f"the buffer was still busy after "
+                       f"{SETTLE_TIMEOUT_S:.0f}s")
+            print(f"[main] killed server/0; {handled}; restoring from its "
+                  f"replicas into a state drawn from seed {SEED + 1}",
+                  flush=True)
+        else:
+            check(not bb.manager.dead, f"servers {sorted(bb.manager.dead)} "
+                  f"were declared dead during the save and flush")
+            print(f"[main] no server killed; restoring from the buffer "
+                  f"into a state drawn from seed {SEED + 1}", flush=True)
         _batch_build_ms(cfg, batch, seq, half)
-        host_step(f"{cfg.name}: restore after the kill, run B resumed")
+        host_step(f"{cfg.name}: restore {restore_how}, run B resumed")
         state_b, hist_b2, mgr = train_loop(cfg, steps=steps, ckpt_every=0,
                                            bb_system=bb, restore=True,
                                            seed=SEED + 1, **kw)
         t["restore_s"] = mgr.metrics[half - 1].get("restore_s")
         if hist_b + hist_b2 != hist_a:
-            _diagnose_restore(mgr, half - 1, saved_b)
-        del saved_b
+            _diagnose_restore(mgr, half - 1, saved, state_b)
     del bb, mgr
     release_host_memory()
     check(t["restore_s"] is not None and [s for s, _ in hist_b2]
@@ -1186,13 +1289,19 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
     for name, leaf in a_leaves.items():
         check(torch.equal(leaf, b_leaves[name]), f"{name}: run B differs "
               f"from the uninterrupted run A")
-    print(f"[main] losses {[round(l, 4) for _, l in hist_a]}; run B (kill, "
-          f"restore at step {half}) equals run A bit for bit in all "
+    event = "kill" if kill else "no kill"
+    print(f"[main] losses {[round(l, 4) for _, l in hist_a]}; run B ({event}"
+          f", restore at step {half}) equals run A bit for bit in all "
           f"{len(a_leaves)} leaves of params and optimizer state",
           flush=True)
-    del state_b, b_leaves
+    del b_leaves
+    if keep_states:
+        states = (state_a, state_b)
+    else:
+        del state_b
+        states = None
     if not int8:
-        return t, {fn.__name__: fn.launches for fn in kernels}, 0
+        return t, {fn.__name__: fn.launches for fn in kernels}, 0, states
 
     # the step-``steps`` state through an int8-moment checkpoint
     state = {"params": state_a.params, "opt_state": state_a.opt_state,
@@ -1221,7 +1330,7 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
           f"leaves ({n_quant} int8, real optimizer moments), "
           f"{t['qckpt_bytes']} bytes; params bit-exact, int8 leaves within "
           f"{worst:.3f} of their bound", flush=True)
-    return t, launches, n_quant
+    return t, launches, n_quant, states
 
 
 # the serving restarts' server ping cadence (the buffer's default: 0.25 s).
@@ -1232,8 +1341,9 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
 # memory to 96 GiB. At a 2 s cadence a server was still declared dead in
 # 3g on one H100 host (a stall over 6 s). Three missed pings take ~20 s at
 # 10 s (a server stalled for 7 s in a test: dead at 0.25 s, alive at 10
-# s). No serving path kills a server; the training paths do, and keep the
-# default
+# s). No serving path kills a server; the training paths that do keep the
+# default, and slice 10's, which kills none, takes this cadence (its
+# 12.51 GB flush had two servers declared dead at the default)
 SERVE_STABILIZE_S = 10.0
 # how long the survivors' message queues must stay empty after a kill
 # before the restore starts, and the longest a restore waits for that
@@ -1291,27 +1401,54 @@ def _batch_build_ms(cfg, batch, seq, step, reps=3):
     return max(times)
 
 
-def _diagnose_restore(mgr, step, saved):
-    """After a resume that diverged: restore the step's checkpoint once
-    more, from the same burst buffer, and print which leaves differ from
-    the state that was saved (none: the buffer gave the state back, and
-    the divergence came after the restore)."""
+def _digests(params, opt_state):
+    """{leaf path: the sum of its bit patterns as integers} of a train
+    state's params and optimizer state, summed on the card in chunks of
+    2^26 elements: what ``_diagnose_restore`` holds a second restore
+    against, at a few bytes a leaf where the state would take its size."""
     import torch
     from repro_torch.checkpoint import serializer as ser
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for name, leaf in ser.tree_paths({"params": params,
+                                      "opt_state": opt_state}):
+        bits = leaf.reshape(-1).view(ints[leaf.element_size()])
+        out[name] = sum(int(c.to(torch.int64).sum())
+                        for c in bits.split(1 << 26))
+    return out
+
+
+def _diagnose_restore(mgr, step, saved, like):
+    """After a resume that diverged: restore the step's checkpoint once
+    more, from the same burst buffer, into zeros shaped as the train state
+    ``like``, and print which leaves differ from the state that was saved
+    (by their ``_digests``; none: the buffer gave the state back, and the
+    divergence came after the restore)."""
+    import torch
     from repro_torch.models.common import map_tree
-    target = {"params": map_tree(torch.zeros_like, saved.params),
-              "opt_state": map_tree(torch.zeros_like, saved.opt_state),
+    target = {"params": map_tree(torch.zeros_like, like.params),
+              "opt_state": map_tree(torch.zeros_like, like.opt_state),
               "data": {"step": torch.zeros((), dtype=torch.int32,
-                                           device=saved.opt_state.step.device)}}
+                                           device=like.opt_state.step.device)}}
     restored, _ = mgr.restore(target, step)
-    got = dict(ser.tree_paths({"params": restored["params"],
-                               "opt_state": restored["opt_state"]}))
-    bad = [name for name, leaf in ser.tree_paths(
-        {"params": saved.params, "opt_state": saved.opt_state})
-        if not torch.equal(leaf, got[name])]
+    got = _digests(restored["params"], restored["opt_state"])
+    bad = [name for name, digest in saved.items() if got.get(name) != digest]
     print(f"[diag] a second restore of the step-{step} checkpoint: "
           f"{len(bad)} leaves differ from the saved state {bad[:8]}; data "
           f"step {int(restored['data']['step'])}", flush=True)
+
+
+def wait_flushed(mgr, step, timeout_s: float = 600.0):
+    """Wait until the flush of checkpoint ``step`` has ended (it records
+    ``flush_s``), at most ``timeout_s``; return its seconds, or None.
+    ``train_loop`` waits 60 s for its flushes and then returns, and a
+    restore that starts while the servers still write their domains to the
+    PFS may find the manifest unreadable (``checkpoint/bbckpt.py``)."""
+    t0 = time.perf_counter()
+    while "flush_s" not in mgr.metrics[step] \
+            and time.perf_counter() - t0 < timeout_s:
+        time.sleep(0.05)
+    return mgr.metrics[step].get("flush_s")
 
 
 # glibc's mallopt parameter for the size from which malloc maps memory
@@ -1602,17 +1739,20 @@ def _attended_pairs(case):
 
 
 def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
-               graph_calls=None):
+               v_pad=0):
     """Kernel, plain version and SDPA at one flash shape; the bound counts
     the (q, k) pairs the case's masks leave; ``stats``: the
     kernel also writes the row statistics (the training path's forward),
     m and l counted in its bytes; ``plain_iters``: the plain version's
-    timed calls (after one warm-up when fewer than 20); ``graph_calls``:
-    the calls of each CUDA graph (by the pairs' count if None). ``ms`` and
+    timed calls (after one warm-up when fewer than 20). ``ms`` and
     ``library_ms`` are CUDA-event times of back-to-back calls from Python,
     which include whatever of each call's host cost the device does not
     hide; ``graph_ms`` and ``library_graph_ms`` are device times of one
-    call, from a CUDA graph of many."""
+    call, from a CUDA graph of as many calls as take ~30 ms by the
+    kernel's event time (2 to 200; each call's output stays allocated in
+    the graph's pool). ``v_pad``: V zero in its last
+    ``v_pad`` columns, as the MLA pads it (for the kernel, the plain
+    version and SDPA alike)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1620,6 +1760,8 @@ def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
 
     b, sq, sk, h, kv, d, causal, window, *_ = case
     q, k, v = _attn_inputs(case, gen)
+    if v_pad:
+        v[..., -v_pad:] = 0
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     pairs = _attended_pairs(case)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
@@ -1629,14 +1771,16 @@ def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
         qt, kt, vt, enable_gqa=True, **_sdpa_mask(case))
     kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
                                         return_stats=stats)
-    # graphs of ~10 to ~50 ms
-    calls = graph_calls or (20 if pairs > 1e8 else 200)
+    ms = cuda_ms(kernel)
+    # graphs of ~30 ms: 20 calls of llama4's 13 ms prefill made a graph
+    # of 260 ms, replayed 12 times for the kernel and for SDPA each
+    calls = max(2, min(200, round(30 / ms)))
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:80",
         "launches": launches, "max_abs_err": err,
-        "ms": cuda_ms(kernel),
+        "ms": ms,
         "plain_ms": cuda_ms(lambda: ops.flash_chunked(q, k, v, causal=causal,
                                                       window=window),
                             iters=plain_iters,
@@ -1662,7 +1806,7 @@ def _sdpa_mask(case):
     return {"is_causal": causal}
 
 
-def _flash_bwd_row(name, case, gen, launches, err, ran):
+def _flash_bwd_row(name, case, gen, launches, err, ran, v_pad=0):
     """The backward kernel, its plain version and SDPA's backward at a
     training shape ``case``. The bound: q, o, dO and dq, k, v, dk and dv in
     bf16 and m, l in f32, each moved once; the reference's five products
@@ -1672,7 +1816,8 @@ def _flash_bwd_row(name, case, gen, launches, err, ran):
     through ``scaled_dot_product_attention(..., enable_gqa=True)`` (causal,
     or a boolean mask for a window shorter than S) on the same inputs in its
     (B, H, S, D) layout, timed alone. ``ran``: the device kernels of a
-    launch at this shape (phase 2's profile)."""
+    launch at this shape (phase 2's profile). ``v_pad``: V and dO zero in
+    their last ``v_pad`` columns, as the MLA pads them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -1681,6 +1826,9 @@ def _flash_bwd_row(name, case, gen, launches, err, ran):
     d, causal, window = case[5], case[6], case[7]
     q, k, v = _attn_inputs(case, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    if v_pad:
+        v[..., -v_pad:] = 0
+        do[..., -v_pad:] = 0
     with torch.no_grad():
         o, m, l = fa.flash_attention(q, k, v, causal=causal, window=window,
                                      return_stats=True)
@@ -1796,6 +1944,7 @@ def kernel_line(gen, launches, err, bwd_ran):
     ds, h2o = launches["deepseek-coder-33b"], launches["h2o-danube-1.8b"]
     ll = launches["llama4-scout-17b-a16e"]
     ds3, wh = launches["deepseek-v3-671b"], launches["whisper-large-v3"]
+    ds3t = launches["deepseek-v3-671b train"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
                            sc["flash_attention"], err["flash_attention"]),
@@ -1871,12 +2020,19 @@ def kernel_line(gen, launches, err, bwd_ran):
             "library_ms", "graph_ms", "library_graph_ms")})
         rows.append(row)
         # slice 8: deepseek-v3-671b's MLA prefill at head dim 192 (V padded
-        # as the path pads it), 128 heads; launches: parts A and B; graphs
-        # of 5 calls (each call's output is 805 MB)
+        # as the path pads it), 128 heads; launches: parts A and B
         rows.append(_flash_row("flash_attention_mla", DS3_PREFILL_CASE, gen,
                                ds3["flash_attention"],
                                err["flash_attention_mla"], plain_iters=3,
-                               graph_calls=5))
+                               v_pad=DS3_V_PAD))
+        # slice 10: deepseek-v3-671b's training forward at head dim 192 with
+        # row statistics (V padded); launches: the trunk's layer and the
+        # MTP layer (2047 tokens) in each step of the path
+        rows.append(_flash_row("flash_attention_train_mla",
+                               DS3_TRAIN_ATTN_CASE, gen,
+                               ds3t["flash_attention"],
+                               err["flash_attention_train_mla"], stats=True,
+                               plain_iters=3, v_pad=DS3_V_PAD))
         # slice 9: whisper-large-v3's prefill at head dim 64, 20 heads
         # (MHA); the row's times are the encoder's non-causal self-attention
         # over 1500 frames, as cross_* the decoder's non-causal attention of
@@ -1895,83 +2051,109 @@ def kernel_line(gen, launches, err, bwd_ran):
                 "library_ms", "graph_ms", "library_graph_ms")})
         rows.append(row)
     # the backward at the training shapes; no main path trains h2o-danube
-    # or at head dim 256, so the D = 80 and D = 256 rows have no launches
-    for name, case, runs in (
-            ("flash_attention_bwd", TRAIN_ATTN_CASE, sct),
-            ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds),
-            ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o),
-            ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rg)):
+    # or at head dim 256, so the D = 80 and D = 256 rows have no launches;
+    # the D = 192 row's launches: slice 10's trunk and MTP layers
+    for name, case, runs, v_pad in (
+            ("flash_attention_bwd", TRAIN_ATTN_CASE, sct, 0),
+            ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds, 0),
+            ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o, 0),
+            ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rg, 0),
+            ("flash_attention_bwd_mla", DS3_TRAIN_ATTN_CASE, ds3t,
+             DS3_V_PAD)):
         rows.append(_flash_bwd_row(name, case, gen,
                                    runs["flash_attention_bwd"], err[name],
-                                   bwd_ran[name]))
+                                   bwd_ran[name], v_pad=v_pad))
     return rows
 
 
 def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
-                  per_step, int8=True, timing=True):
+                  per_step, int8=True, timing=True, kill=True,
+                  keep_states=False):
     """A training phase: ``training_restart`` (``int8``: with its int8
-    round) and, with ``timing``, ``time_training``, under torch's
-    deterministic algorithms; the launch counts must be exactly
-    ``per_step`` launches a step (run A's steps and run B's) of each kernel
-    named there, the int8 checkpoint's quantize and dequantize launches,
-    and none of any other kernel. Without ``timing`` the step times are
-    the ``[train]`` lines of run A and the peak device memory the path's.
-    Prints the path's numbers and returns the launch counts."""
+    round; ``kill``: server/0 lost before the restore) and, with
+    ``timing``, ``training_numbers``, under torch's deterministic
+    algorithms; the launch counts must be exactly ``per_step`` launches a
+    step (run A's steps and run B's) of each kernel named there, the int8
+    checkpoint's quantize and dequantize launches, and none of any other
+    kernel. Without ``timing`` the step times are the ``[train]`` lines of
+    run A and the peak device memory the path's. Prints the path's
+    numbers and returns the launch counts and, with ``keep_states``, run
+    A's and run B's final states (else None)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True)
     try:
-        t, launches, n_quant = training_restart(
+        t, launches, n_quant, states = training_restart(
             cfg, device, batch=batch, seq=seq, steps=steps,
-            dram_capacity=dram_capacity, int8=int8)
+            dram_capacity=dram_capacity, int8=int8, kill=kill,
+            keep_states=keep_states)
         want = {name: 0 for name in launches}
         want.update({name: n * 2 * steps for name, n in per_step.items()})
         want.update(quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
-        print(f"[main] launches in train -> save -> kill -> restore -> "
+        print(f"[main] launches in train -> save -> "
+              f"{'kill -> ' if kill else ''}restore -> "
               f"train{' -> int8 save -> restore' if int8 else ''}: "
               f"{launches} (expected {want})", flush=True)
         check(all(launches[name] > 0 for name in per_step)
               and launches == want, f"launch counts {launches} != {want}")
         if timing:
-            step_s, tok_s, peak_gb, update_s = time_training(
-                cfg, device, batch, seq)
+            training_numbers(cfg, device, batch, seq)
     finally:
         torch.use_deterministic_algorithms(False)
-    if timing:
-        print(f"[numbers] {cfg.name}: step {step_s:.3f}s ({tok_s:.1f} "
-              f"tok/s, B={batch}, S={seq}), peak device memory "
-              f"{peak_gb:.2f} GB, optimizer update {update_s:.4f}s",
-              flush=True)
-    else:
+    if not timing:
         print(f"[numbers] {cfg.name}: step times in run A's [train] lines "
               f"(B={batch}, S={seq}), peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the "
               f"path", flush=True)
+    restore = (f"restore after the kill {t['restore_s']:.3f}s (the buffer "
+               f"handled the kill in {t['settle_s']}s before it)" if kill
+               else f"restore {t['restore_s']:.3f}s (no server killed)")
     print(f"[numbers] {cfg.name}: save {t['save_s']:.3f}s (ingest of "
           f"{t['ckpt_bytes']} bytes = {t['ckpt_bytes'] / 1e9:.3f} GB, "
           f"unquantized; {2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server "
           f"at replication 2 over 4 servers of {dram_capacity / 2**30:.0f} "
-          f"GiB), flush {t['flush_s']}s (off the critical path), restore "
-          f"after the kill {t['restore_s']:.3f}s (the buffer handled the "
-          f"kill in {t['settle_s']}s before it)", flush=True)
+          f"GiB), flush {t['flush_s']}s (off the critical path), "
+          f"{restore}", flush=True)
     if int8:
         print(f"[numbers] {cfg.name}: int8 save {t['qsave_s']:.3f}s "
               f"({t['qckpt_bytes'] / 1e9:.3f} GB incl. on-card quantize), "
               f"int8 flush {t['qflush_s']}s, int8 restore "
               f"{t['qrestore_s']:.3f}s", flush=True)
-    return launches
+    return launches, states
 
 
 def _layers(cfg, kind):
     return sum(unit.count(kind) * reps for unit, reps in cfg.segments)
 
 
+def training_numbers(cfg, device, batch, seq):
+    """Print ``time_training``'s numbers under torch's deterministic
+    algorithms, as the path trains."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        step_s, tok_s, peak_gb, update_s = time_training(cfg, device, batch,
+                                                         seq)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[numbers] {cfg.name}: step {step_s:.3f}s ({tok_s:.1f} "
+          f"tok/s, B={batch}, S={seq}), peak device memory "
+          f"{peak_gb:.2f} GB, optimizer update {update_s:.4f}s",
+          flush=True)
+
+
+# the flash kernels' labels in a device profile, forward and backward
+FLASH_FWD = re.compile(r"flash_(mma|simt)_kernel")
+FLASH_BWD = re.compile(r"flash_bwd_")
+
+
 def time_training(cfg, device, batch, seq):
     """Step time, tokens/s and peak device memory of the train step at the
     path's shape (one step after a warm-up one, deterministic as on the
-    path), one profiled step, and the optimizer update's own seconds (host
-    clock around ``synchronize``, after a warm-up update; the params stand
-    in for the gradients)."""
+    path), one profiled step with the flash forward's and backward's share
+    of its busy time, and the optimizer update's own seconds (host clock
+    around ``synchronize``, after a warm-up update; the params stand in for
+    the gradients)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.train import batch_to, build
@@ -1989,8 +2171,14 @@ def time_training(cfg, device, batch, seq):
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    device_profile(f"{cfg.name} train step (B={batch}, S={seq})",
-                   lambda: step_fn(state, batches[0]))
+    what = f"{cfg.name} train step (B={batch}, S={seq})"
+    busy, port = device_profile(what, lambda: step_fn(state, batches[0]))
+    if busy:
+        fwd = sum(ms for name, ms in port.items() if FLASH_FWD.match(name))
+        bwd = sum(ms for name, ms in port.items() if FLASH_BWD.match(name))
+        print(f"[profile] {what}: the flash forward {_share(fwd, busy)}, "
+              f"the flash backward {_share(bwd, busy)} of the busy "
+              f"{busy:.3f} ms", flush=True)
     with torch.no_grad():
         optimizer.update(state.params, state.opt_state, state.params)
         torch.cuda.synchronize()
@@ -2141,14 +2329,18 @@ def absorbed_decode_check(cfg, model, params, prompts, tol):
 
 
 def deepseek_v3_path(device):
-    """Phase 3h, slice 8: deepseek-v3-671b at full width through the MLA
-    kinds. Part A: one ``mla_dense`` layer (with the MTP module the
-    checkpoint carries) restarts from a params-only checkpoint through the
-    burst buffer and serves. Part B: one ``mla_dense`` and one ``mla_moe``
-    layer (top-8 of 256 experts and a shared expert), no MTP, built on the
-    card from the seed, serves the same requests twice (equal tokens) and
-    holds the absorbed decode against the reconstructed path. Prints both
-    parts' numbers and returns the launch counts of parts A and B summed."""
+    """Phase 3h, slices 8 and 10: deepseek-v3-671b at full width through
+    the MLA kinds. Part A (slice 10): one ``mla_dense`` layer and the MTP
+    module (an ``mla_dense`` layer too) train with Adafactor and the MTP
+    loss through ``train_loop`` and a checkpoint in the burst buffer (a
+    restore into a state from another seed, no kill), run B bit for bit
+    run A; then the same requests are served from run B's params and from
+    run A's (equal tokens). Part B (slice 8): one ``mla_dense`` and one
+    ``mla_moe`` layer (top-8 of 256 experts and a shared expert), no MTP,
+    built on the card from the seed, serves the requests twice (equal
+    tokens) and holds the absorbed decode against the reconstructed path.
+    Prints both parts' numbers and returns the serving launch counts of
+    parts A and B summed, and part A's training launch counts."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import serve_batch
@@ -2174,35 +2366,66 @@ def deepseek_v3_path(device):
           f"{full.param_dtype}); full config: segments {full.segments}, MTP "
           f"depth {full.mtp_depth}, {full.param_count()} params", flush=True)
 
-    # part A: the restart through the burst buffer
+    # part A: training through the burst buffer, then serving
     cfg = dataclasses.replace(full, segments=DS3_SEGMENTS_A)
+    n = cfg.param_count()
+    mla = _layers(cfg, "mla_dense") + cfg.mtp_depth
     print(f"[main] {full.name} part A, reduced: segments {full.segments} -> "
           f"{cfg.segments}, num_layers {full.num_layers} -> "
-          f"{cfg.num_layers}, MTP depth {cfg.mtp_depth} kept (the "
-          f"checkpoint carries the module; serving never reads it); "
-          f"{cfg.param_count()} params; prompt {DS3_PROMPT}; params-only "
-          f"checkpoint over 4 servers of {DS3_DRAM / 2**30:.0f} GiB DRAM",
-          flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    t, launches_a, (model, params, prompts, n_quant) = serving_restart(
-        cfg, device, batch=DS3_BATCH, prompt=DS3_PROMPT, gen_tokens=DS3_GEN,
-        requests=DS3_REQUESTS, dram_capacity=DS3_DRAM, train_state=False)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"flash_attention": _layers(cfg, "mla_dense") * DS3_REQUESTS,
-            "flash_attention_bwd": 0, "rg_lru": 0, "mlstm": 0,
-            "quantize_blockwise": n_quant, "dequantize_blockwise": n_quant}
-    print(f"[main] launches in save -> restore -> serve: {launches_a} "
-          f"(expected {want})", flush=True)
-    check(launches_a == want and launches_a["flash_attention"] == 3,
+          f"{cfg.num_layers}, MTP depth {cfg.mtp_depth} (its layer "
+          f"{cfg.segments[-1][0][-1]}, the trunk's last kind; mla_moe in the "
+          f"full config); {n} params; trains with Adafactor (momentum 0.9 "
+          f"in bf16, factored f32 second moments), grad accumulation "
+          f"{cfg.grad_accum_dtype}, the MTP loss at weight 0.3; batch "
+          f"{DS3_TRAIN_BATCH} x {DS3_TRAIN_SEQ} tokens, {DS3_TRAIN_STEPS} "
+          f"steps; unquantized checkpoint about {4 * n / 1e9:.2f} GB (bf16 "
+          f"params and m) and the second moments, over 4 servers of "
+          f"{DS3_DRAM / 2**30:.0f} GiB DRAM, no server killed; then "
+          f"{DS3_REQUESTS} x {DS3_BATCH} prompts of {DS3_PROMPT} tokens "
+          f"served from run B's params", flush=True)
+    train_launches, (state_a, state_b) = training_path(
+        cfg, device, batch=DS3_TRAIN_BATCH, seq=DS3_TRAIN_SEQ,
+        steps=DS3_TRAIN_STEPS, dram_capacity=DS3_DRAM,
+        per_step={"flash_attention": mla, "flash_attention_bwd": mla},
+        int8=False, timing=False, kill=False, keep_states=True)
+    check(train_launches["flash_attention"] == 16, f"{train_launches}")
+    host_memory(f"{full.name} part A training")
+
+    host_step(f"{cfg.name} part A: serve run B's params and run A's")
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    prompts = [torch.randint(1, cfg.vocab_size, (DS3_BATCH, DS3_PROMPT),
+                             generator=gen, device=device)
+               for _ in range(DS3_REQUESTS)]
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    runs = [[serve_batch(cfg, model, state.params, p, gen_tokens=DS3_GEN)
+             for p in prompts] for state in (state_b, state_a)]
+    launches_a = {fn.__name__: fn.launches for fn in kernels}
+    for r, (a, b) in enumerate(zip(*runs)):
+        check(a.shape == (DS3_BATCH, DS3_GEN), f"request {r}: {a.shape}")
+        check(torch.equal(a, b), f"request {r}: run B's params served "
+              f"other tokens than run A's")
+    # each prefill launches the flash forward once an MLA layer of the
+    # trunk (serving never reads the MTP module)
+    want = {name: 0 for name in launches_a}
+    want["flash_attention"] = _layers(cfg, "mla_dense") * 2 * DS3_REQUESTS
+    print(f"[main] launches in serve x 2: {launches_a} (expected {want}); "
+          f"{DS3_REQUESTS} x {DS3_BATCH} requests served {DS3_GEN} tokens "
+          f"each from run B's restored and resumed params, equal to run "
+          f"A's", flush=True)
+    check(launches_a == want and launches_a["flash_attention"] == 6,
           f"launch counts {launches_a} != {want}")
-    print(f"[numbers] {cfg.name} part A: peak device memory {peak_gb:.2f} GB "
-          f"over save -> restore -> serve (the un-saved params, the zero "
-          f"target and the restored params: "
-          f"{3 * 2 * cfg.param_count() / 1e9:.2f} GB); checkpoint "
-          f"{t['ckpt_bytes']} bytes, "
-          f"{2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server", flush=True)
-    serving_numbers(cfg, t, model, params, prompts, DS3_GEN)
-    del model, params, prompts
+    del state_a, runs
+    prefill_ms, decode_tps = time_serving(cfg, model, state_b.params,
+                                          prompts[0], DS3_GEN)
+    print(f"[numbers] {cfg.name} part A: prefill {prefill_ms:.2f} ms "
+          f"(B={DS3_BATCH}, S={DS3_PROMPT}), decode {decode_tps:.1f} tok/s "
+          f"(B={DS3_BATCH}) from run B's params", flush=True)
+    del model, prompts, state_b
+    training_numbers(cfg, device, DS3_TRAIN_BATCH, DS3_TRAIN_SEQ)
     host_memory(f"{full.name} part A")
 
     # part B: the MoE layer at full width, on the card
@@ -2261,35 +2484,40 @@ def deepseek_v3_path(device):
           f"{prefill_ms:.2f} ms (B={DS3_BATCH}, S={DS3_PROMPT}), decode "
           f"{decode_tps:.1f} tok/s (B={DS3_BATCH})", flush=True)
     del model, params, prompts, runs
-    return {name: launches_a[name] + launches_b[name] for name in launches_a}
+    return ({name: launches_a[name] + launches_b[name]
+             for name in launches_a}, train_launches)
 
 
 def whisper_path(device):
     """Phase 3i, the serving restart of slice 9: whisper-large-v3 at full
-    width and depth (32 enc layers, 32 cross layers) from a params-only
-    checkpoint; every request's prefill encodes 4 x 1500 frames drawn from
-    the seed and attends to them from a 224-token prompt. Prints the path's
-    numbers and returns its launch counts."""
+    width, depth cut to WH_LAYERS enc and cross layers of its 32 + 32, from
+    a params-only checkpoint; every request's prefill encodes 4 x 1500
+    frames drawn from the seed and attends to them from a 224-token
+    prompt. Prints the path's numbers and returns its launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
-    cfg = get_config("whisper-large-v3")
-    check((cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+    full = get_config("whisper-large-v3")
+    check((full.d_model, full.num_heads, full.num_kv_heads,
+           full.resolved_head_dim, full.d_ff, full.vocab_size)
           == (1280, WH_HEADS, WH_HEADS, WH_HEAD_DIM, 5120, 51866)
-          and cfg.segments == ((("cross",), 32),)
-          and (cfg.num_encoder_layers, cfg.encoder_seq, cfg.encoder_dim)
+          and full.segments == ((("cross",), 32),)
+          and (full.num_encoder_layers, full.encoder_seq, full.encoder_dim)
           == (32, WH_FRAMES, 1280)
-          and (cfg.norm, cfg.act, cfg.mlp_gated, cfg.pos_embed,
-               cfg.tie_embeddings) == ("layernorm", "gelu", False, "learned",
-                                       True)
-          and cfg.param_dtype == "bfloat16", "whisper-large-v3 shapes")
-    print(f"[main] {cfg.name} full width and depth (d_model {cfg.d_model}, "
+          and (full.norm, full.act, full.mlp_gated, full.pos_embed,
+               full.tie_embeddings) == ("layernorm", "gelu", False,
+                                        "learned", True)
+          and full.param_dtype == "bfloat16", "whisper-large-v3 shapes")
+    cfg = dataclasses.replace(full, segments=((("cross",), WH_LAYERS),),
+                              num_encoder_layers=WH_LAYERS)
+    print(f"[main] {cfg.name} full width (d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads (MHA), head_dim {cfg.resolved_head_dim}, "
           f"d_ff {cfg.d_ff} GELU, LayerNorm, vocab {cfg.vocab_size} tied, "
           f"learned decoder positions ({cfg.max_position}), sincos encoder "
-          f"positions; {cfg.num_encoder_layers} enc + {cfg.num_layers} cross "
-          f"layers, {cfg.param_dtype}); {cfg.param_count()} params; "
+          f"positions, {cfg.param_dtype}), reduced: {full.num_encoder_layers}"
+          f" enc + {full.num_layers} cross layers -> "
+          f"{cfg.num_encoder_layers} + {cfg.num_layers}; "
+          f"{cfg.param_count()} params; "
           f"{WH_REQUESTS} requests of {WH_BATCH} x {cfg.encoder_seq} frames "
           f"of {cfg.encoder_dim} (30 s of audio) and a {WH_PROMPT}-token "
           f"prompt, {WH_GEN} new tokens; params-only checkpoint over 4 "
@@ -2311,7 +2539,7 @@ def whisper_path(device):
             "quantize_blockwise": n_quant, "dequantize_blockwise": n_quant}
     print(f"[main] launches in save -> restore -> serve: {launches} "
           f"(expected {want})", flush=True)
-    check(launches == want and launches["flash_attention"] == 288,
+    check(launches == want and launches["flash_attention"] > 0,
           f"launch counts {launches} != {want}")
     print(f"[numbers] {cfg.name}: peak device memory {peak_gb:.2f} GB over "
           f"save -> restore -> serve; checkpoint {t['ckpt_bytes']} bytes, "
@@ -2416,7 +2644,7 @@ def main():
           f"{full.num_layers} -> {xl_cfg.num_layers}; "
           f"{xl_cfg.param_count()} params; batch {XL_BATCH} x {XL_SEQ} "
           f"tokens, {XL_STEPS} steps", flush=True)
-    xl_launches = training_path(
+    xl_launches, _ = training_path(
         xl_cfg, device, batch=XL_BATCH, seq=XL_SEQ, steps=XL_STEPS,
         dram_capacity=XL_DRAM, per_step={"mlstm": _layers(xl_cfg, "mlstm")},
         int8=False, timing=False)
@@ -2434,7 +2662,7 @@ def main():
           f"checkpoint {ckpt / 1e9:.3f} GB, {2 * ckpt / 4 / 2**30:.2f} GiB "
           f"a server at replication 2 over 4 servers of "
           f"{SC_DRAM / 2**30:.0f} GiB DRAM", flush=True)
-    sc_launches = training_path(
+    sc_launches, _ = training_path(
         cfg, device, batch=SC_BATCH, seq=SC_SEQ, steps=SC_STEPS,
         dram_capacity=SC_DRAM,
         per_step={"flash_attention": LAYERS, "flash_attention_bwd": LAYERS})
@@ -2460,27 +2688,31 @@ def main():
           f"{4 * n / 1e9:.2f} GB (bf16 params and m) and the second "
           f"moments, over 4 servers of {DS_DRAM / 2**30:.0f} GiB DRAM",
           flush=True)
-    ds_launches = training_path(
+    ds_launches, _ = training_path(
         ds_cfg, device, batch=DS_BATCH, seq=DS_SEQ, steps=DS_STEPS,
         dram_capacity=DS_DRAM,
         per_step={"flash_attention": DS_LAYERS,
                   "flash_attention_bwd": DS_LAYERS})
     host_memory("phase 3e")
 
-    # phase 3f: slice 6's path, h2o-danube-1.8b at full width and depth
-    # from a params-only checkpoint, prompts past its window
-    h2o_cfg = get_config("h2o-danube-1.8b")
+    # phase 3f: slice 6's path, h2o-danube-1.8b at full width, depth cut
+    # to H2O_LAYERS, from a params-only checkpoint, prompts past its window
+    full = get_config("h2o-danube-1.8b")
+    h2o_cfg = dataclasses.replace(full,
+                                  segments=((("attn_local",), H2O_LAYERS),))
     check(h2o_cfg.resolved_head_dim == H2O_HEAD_DIM
           and h2o_cfg.window_size == H2O_WINDOW
+          and full.segments == ((("attn_local",), 24),)
           and (h2o_cfg.num_heads, h2o_cfg.num_kv_heads)
           == (H2O_HEADS, H2O_KV), "h2o-danube-1.8b shapes")
-    print(f"[main] {h2o_cfg.name} full width and depth (d_model "
+    print(f"[main] {h2o_cfg.name} full width (d_model "
           f"{h2o_cfg.d_model}, {h2o_cfg.num_heads} heads / "
           f"{h2o_cfg.num_kv_heads} kv, head_dim {h2o_cfg.resolved_head_dim}, "
           f"d_ff {h2o_cfg.d_ff}, window {h2o_cfg.window_size}, vocab "
-          f"{h2o_cfg.vocab_size}, {h2o_cfg.num_layers} layers, "
-          f"{h2o_cfg.param_dtype}); {h2o_cfg.param_count()} params; prompt "
-          f"{H2O_PROMPT} past the window", flush=True)
+          f"{h2o_cfg.vocab_size}, {h2o_cfg.param_dtype}), reduced: "
+          f"num_layers {full.num_layers} -> {h2o_cfg.num_layers}; "
+          f"{h2o_cfg.param_count()} params; prompt {H2O_PROMPT} past the "
+          f"window", flush=True)
     h2o_t, h2o_launches, (h2o_model, h2o_params, h2o_prompts, h2o_quant) = \
         serving_restart(h2o_cfg, device, batch=H2O_BATCH, prompt=H2O_PROMPT,
                         gen_tokens=H2O_GEN, requests=H2O_REQUESTS,
@@ -2503,10 +2735,10 @@ def main():
     host_memory("phase 3g")
 
     # phase 3h: slice 8's path, deepseek-v3-671b at full width
-    ds3_launches = deepseek_v3_path(device)
+    ds3_launches, ds3_train_launches = deepseek_v3_path(device)
     host_memory("phase 3h")
 
-    # phase 3i: slice 9's path, whisper-large-v3 at full width and depth
+    # phase 3i: slice 9's path, whisper-large-v3 at full width
     wh_launches = whisper_path(device)
     host_memory("phase 3i")
 
@@ -2519,6 +2751,7 @@ def main():
                              "h2o-danube-1.8b": h2o_launches,
                              "llama4-scout-17b-a16e": ll_launches,
                              "deepseek-v3-671b": ds3_launches,
+                             "deepseek-v3-671b train": ds3_train_launches,
                              "whisper-large-v3": wh_launches}, err, bwd_ran)
     host_memory("the kernels line")
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

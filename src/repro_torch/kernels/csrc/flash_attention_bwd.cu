@@ -27,13 +27,14 @@
 // Outputs are rounded once to the input type, as the reference casts them.
 //
 // Which kernels take what, chosen in the C entry point:
-//  * bfloat16 at every D, {16, 32, 48, 64, 80, 128, 256} (every training
-//    path; the starcoder2-3b and deepseek-coder-33b shapes are D = 128,
-//    h2o-danube-1.8b's D = 80, recurrentgemma-9b's and gemma3-4b's 256):
-//    flash_bwd_mma_dkdv_kernel<D> and flash_bwd_mma_dq_kernel<D>, every
-//    tile product on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//    accumulate), below. At D = 256 a dk / dv block accumulates dk or dv,
-//    not both (SPLIT).
+//  * bfloat16 at every D, {16, 32, 48, 64, 80, 128, 192, 256} (every
+//    training path; the starcoder2-3b and deepseek-coder-33b shapes are
+//    D = 128, h2o-danube-1.8b's D = 80, deepseek-v3-671b's MLA 192 (q / k
+//    128 + 64, V zero-padded from 128), recurrentgemma-9b's and gemma3-4b's
+//    256): flash_bwd_mma_dkdv_kernel<D> and flash_bwd_mma_dq_kernel<D>,
+//    every tile product on the tensor cores (mma.sync m16n8k16, bf16 in,
+//    f32 accumulate), below. At D = 192 and 256 a dk / dv block
+//    accumulates dk or dv, not both (SPLIT).
 //  * float32 at every D: flash_bwd_dkdv_kernel<D> and
 //    flash_bwd_dq_kernel<D>, every product in f32 on the CUDA
 //    cores. The tensor cores would take f32 as TF32, which the reference's
@@ -122,6 +123,13 @@
 //    64-row ring would be 204,288 bytes, 1 block). dq: Q and dO 2 x 64 x
 //    528, the (K, V) ring 2 x 2 x 16 x 528 (16-key tiles): 101,376 bytes,
 //    2 blocks an SM; dq takes 128 accumulators a thread.
+//  * D = 192 takes D = 256's plan: dk and dv in blocks of their own (96
+//    accumulators a thread each), q steps of 16 rows, dq over 16-key
+//    tiles. Rows are 200 bf16 (400 bytes, 25 16-byte units, so ldmatrix
+//    stays conflict-free). dk / dv: 2 x 64 x 400 + 2 x 2 x 16 x 400 +
+//    2 x 3 x 16 x 4 = 77,184 bytes, dq: 2 x 64 x 400 + 2 x 2 x 16 x 400 =
+//    76,800 bytes, 2 blocks an SM each (a third dk / dv block would pass
+//    the SM's 228 KB with its 1 KB reserve).
 //    Registers and spills per instance: `[ptxas flash_attention_bwd]` in
 //    chip_smoke.py's output (PERF.md keeps them); the tile and exp
 //    variants: `python -m repro_torch.kernels.tune_flash_bwd`.
@@ -130,11 +138,11 @@
 // In a tile product a thread owns rows ty + 16 i and columns tx + 16 j, so
 // a warp reads two rows of one operand (a broadcast) and 16 rows of the
 // other at a row pitch of D + 1 words (16 banks). Tiles of 64 q rows x 64
-// keys for D <= 128, 32 x 32 for D = 256; shared memory a block (f32
-// staging, four (rows x (D + 1)) tiles, two (BQ x (BK + 1)) score tiles,
-// three row vectors): D = 128 166,144 bytes, D = 256 140,416 bytes, so one
-// block an SM. P and dS go through shared memory and loads are
-// synchronous.
+// keys for D <= 128, 32 x 32 for D = 192 and 256; shared memory a block
+// (f32 staging, four (rows x (D + 1)) tiles, two (BQ x (BK + 1)) score
+// tiles, three row vectors): D = 128 166,144 bytes, D = 192 107,648 bytes,
+// D = 256 140,416 bytes, so one block an SM (two at D = 192). P and dS go
+// through shared memory and loads are synchronous.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -528,8 +536,8 @@ struct MmaBwdPlan {
   static constexpr int Q_BLOCKS = D > 128 ? 2 : D >= 80 ? 3 : 2;
   static constexpr int Q_SMEM =
       (int)sizeof(bf16) * (2 * Q_BQ + 2 * 2 * Q_BK) * PITCH;
-  static_assert(D % 16 == 0 && (D <= 128 || D == 256),
-                "16-wide k steps, D <= 128 or 256");
+  static_assert(D % 16 == 0 && (D <= 128 || D == 192 || D == 256),
+                "16-wide k steps, D <= 128, 192 or 256");
   static_assert(KV_BQ % KV_QS == 0, "whole sub-steps in a q step");
 };
 
@@ -1189,6 +1197,7 @@ int dispatch_f32(const void* q, const void* k, const void* v,
     BWD_CASE(64)
     BWD_CASE(80)
     BWD_CASE(128)
+    BWD_CASE(192)
     BWD_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
@@ -1213,6 +1222,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v,
     BWD_CASE(64)
     BWD_CASE(80)
     BWD_CASE(128)
+    BWD_CASE(192)
     BWD_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;

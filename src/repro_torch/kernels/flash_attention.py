@@ -5,24 +5,24 @@ kernel ``repro/kernels/flash_attention.py::flash_attention_pallas``) and
 plain-jnp ``repro/kernels/ops.py::_flash_bwd``).
 
 Head dims: ``HEAD_DIMS`` (16, 32, 48, 64, 80, 128, 192, 256), each a
-compiled instance of both forward kernels; 80 is h2o-danube-1.8b's
-(2560 / 32), 128 starcoder2-3b's and deepseek-coder-33b's, 192
-deepseek-v3-671b's MLA prefill (q/k head dim 128 + 64, V zero-padded from
-128), 256 the gemma family's. The backward kernels take ``BWD_HEAD_DIMS``,
-the same without 192: MLA trains nowhere in the port yet.
+compiled instance of both forward and both backward kernels; 80 is
+h2o-danube-1.8b's (2560 / 32), 128 starcoder2-3b's and
+deepseek-coder-33b's, 192 deepseek-v3-671b's MLA, in its training and its
+prefill (q/k head dim 128 + 64, V zero-padded from 128), 256 the gemma
+family's.
 
 Forward: bfloat16 inputs go to the tensor-core kernel (``mma.sync``, bf16
 products with f32 accumulation), float32 inputs to the f32 kernel on the
 CUDA cores (the reference's f32 tolerance rules out TF32). Either also
 writes the f32 row statistics (m, l) when asked. Backward, deterministic
-(no atomics): bfloat16 at every backward head dim on the tensor cores (P
-and dS split into two bf16 operands each; at D = 128 the dk / dv kernel
-forms its scores 16 queries at a time, below it a whole 64-query step at
-once; at D = 80 and 128 the dq kernel walks 32-key tiles at 3 blocks an
-SM, below 64-key tiles at 2; at D = 256 the dk / dv launch gives dk and
-dv blocks of their own on each 64-key tile (128 accumulators a thread
-each) and walks q steps of 16 rows, and dq walks 16-key tiles, both at
-about 100 KB of shared memory and 2 blocks an SM: the plans that keep
+(no atomics): bfloat16 at every head dim on the tensor cores (P and dS
+split into two bf16 operands each; at D = 128 the dk / dv kernel forms its
+scores 16 queries at a time, below it a whole 64-query step at once; at
+D = 80 and 128 the dq kernel walks 32-key tiles at 3 blocks an SM, below
+64-key tiles at 2; at D = 192 and 256 the dk / dv launch gives dk and dv
+blocks of their own on each 64-key tile (96 and 128 accumulators a thread
+each) and walks q steps of 16 rows, and dq walks 16-key tiles, at about 77
+and 100 KB of shared memory a block and 2 blocks an SM: the plans that keep
 their accumulators in registers, chosen from ``ptxas -v`` and
 ``tune_flash_bwd``), float32 on the CUDA cores.
 
@@ -48,7 +48,6 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 48, 64, 80, 128, 192, 256)
-BWD_HEAD_DIMS = tuple(d for d in HEAD_DIMS if d != 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fwd = None
 _bwd = None
@@ -78,8 +77,8 @@ def _bwd_kernel():
     return _bwd
 
 
-def _check(what, q, k, v, *, like_q=(), stats=(), head_dims=HEAD_DIMS):
-    """Shapes, dtypes, head dim (one of ``head_dims``) and contiguity of q
+def _check(what, q, k, v, *, like_q=(), stats=()):
+    """Shapes, dtypes, head dim (one of ``HEAD_DIMS``) and contiguity of q
     (B, Sq, H, D), k / v (B, Sk, KV, D), the tensors ``like_q`` (q's shape
     and dtype) and the f32 row statistics ``stats`` (B, Sq, H); bf16 q, k,
     v and ``like_q`` 16-byte aligned; then one CUDA device."""
@@ -91,11 +90,8 @@ def _check(what, q, k, v, *, like_q=(), stats=(), head_dims=HEAD_DIMS):
         raise ValueError(f"{what}: dtypes {[t.dtype for t in tensors]}, "
                          f"stats {[t.dtype for t in stats]}; needs all "
                          f"float32 or all bfloat16, stats float32")
-    if d not in head_dims:
-        missing = (f"; head dim {d} has a forward kernel but no backward "
-                   f"yet" if d in HEAD_DIMS else "")
-        raise ValueError(f"{what}: head dim {d} not in {head_dims}"
-                         f"{missing}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape or h % kvh \
             or any(t.shape != q.shape for t in like_q) \
             or any(t.shape != (b, sq, h) for t in stats):
@@ -159,15 +155,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, return_stats=False):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) on one CUDA device, contiguous,
     all float32 or all bfloat16 (bf16: 16-byte aligned) -> (B, Sq, H, D) in
-    q's dtype; differentiable in q, k, v at ``BWD_HEAD_DIMS`` (a head dim
-    without a backward kernel raises under autograd before the device, not
-    at the backward). ``return_stats`` (no gradient):
+    q's dtype; differentiable in q, k, v. ``return_stats`` (no gradient):
     (o, m, l) with the f32 row statistics m, l of shape (B, Sq, H)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    # a gradient needs the backward kernel's head dims
-    _check("flash_attention kernel", q, k, v,
-           head_dims=BWD_HEAD_DIMS if grad else HEAD_DIMS)
+    _check("flash_attention kernel", q, k, v)
     opts = dict(causal=causal, window=window, softcap=softcap,
                 q_offset=q_offset)
     if grad and return_stats:
@@ -187,7 +179,7 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal=True, window=0,
     gradient ``do``; all contiguous on one CUDA device (bf16: 16-byte
     aligned)."""
     _check("flash_attention_bwd kernel", q, k, v, like_q=(o, do),
-           stats=(m, l), head_dims=BWD_HEAD_DIMS)
+           stats=(m, l))
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     fn = _bwd_kernel()

@@ -77,8 +77,12 @@ def train_loop(cfg, *, steps, global_batch, seq_len, ckpt_every,
         try:
             restored, ck_step = mgr.restore(target)
             state = TrainState(restored["params"], restored["opt_state"])
-            pipe.load_state_dict({**pipe.state_dict(),
-                                  "step": int(restored["data"]["step"])})
+            data_step = int(restored["data"]["step"])
+            # neither the restore's target (the state drawn from ``seed``)
+            # nor the restored tree outlives the restore: held through the
+            # run, each kept one more train state on the card
+            del target, restored
+            pipe.load_state_dict({**pipe.state_dict(), "step": data_step})
             start_step = ck_step + 1
             restore_s = time.perf_counter() - t0
             mgr.metrics.setdefault(ck_step, {})["restore_s"] = restore_s

@@ -19,8 +19,8 @@ without an encoder) only ``enc_proj``: ``_encode`` turns the stub
 frontend's ``enc_input`` into the context the cross layers attend to. A
 config with ``mtp_depth`` also carries DeepSeek-V3's
 multi-token-prediction module (``mtp``) in its tree, as the reference's
-does; only the reference's ``forward_with_mtp`` (training) reads it, and
-the port does not train with it yet, so serving never touches it.
+does; only ``forward_with_mtp`` (training) reads it, so serving never
+touches it.
 
 Caches are updated in place: ``prefill`` and ``decode_step`` write into the
 cache tensors they are given and return the same cache.
@@ -387,9 +387,10 @@ def _ext(cfg, params, positions, enc_input):
     return {"positions": positions, "ctx": ctx}
 
 
-def forward(cfg, params, tokens, enc_input=None):
-    """Training / scoring forward. tokens: (B, S) -> logits (B, S, V).
-    enc_input: (B, S_enc, encoder_dim) for configs with cross layers."""
+def _trunk(cfg, params, tokens, enc_input):
+    """The embedding and every segment's layers over tokens (B, S): the
+    residual stream (B, S, d) before the final norm, and the layers' ext
+    (positions 0 .. S-1, the encoded context)."""
     b, s = tokens.shape
     ext = _ext(cfg, params, _positions(b, s, 0, tokens.device), enc_input)
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
@@ -399,8 +400,39 @@ def forward(cfg, params, tokens, enc_input=None):
             p_layer = _layer(seg_params, r)
             for j, kname in enumerate(unit):
                 x = KINDS[kname].apply(cfg, p_layer[str(j)], x, ext)
+    return x, ext
+
+
+def forward(cfg, params, tokens, enc_input=None):
+    """Training / scoring forward. tokens: (B, S) -> logits (B, S, V).
+    enc_input: (B, S_enc, encoder_dim) for configs with cross layers."""
+    x, _ = _trunk(cfg, params, tokens, enc_input)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed(cfg, params["embed"], x)
+
+
+def forward_with_mtp(cfg, params, tokens, enc_input=None):
+    """Training forward with DeepSeek-V3's MTP head (depth 1): (logits
+    (B, S, V) over positions 0 .. S-1, predicting token t+1; mtp_logits
+    (B, S-1, V) over positions 0 .. S-2, predicting token t+2 from the
+    trunk's h_t and the embedding of token t+1), as the reference's."""
+    h_final, ext = _trunk(cfg, params, tokens, enc_input)
+    logits = unembed(cfg, params["embed"],
+                     apply_norm(cfg, params["final_norm"], h_final))
+    mp = params["mtp"]
+    positions = ext["positions"][:, 1:]
+    h = apply_norm(cfg, mp["h_norm"], h_final[:, :-1])
+    e = apply_norm(cfg, mp["e_norm"], embed_tokens(
+        cfg, params["embed"], tokens[:, 1:], positions))
+    hcat = torch.cat([h, e], dim=-1)
+    hm = torch.matmul(hcat, mp["proj"].to(hcat.dtype))
+    # one more layer of the trunk's last kind, at positions 1 .. S-1
+    last_kind = cfg.segments[-1][0][-1]
+    hm = KINDS[last_kind].apply(cfg, _layer(mp["layer"], 0)["0"], hm,
+                                {"positions": positions, "ctx": ext["ctx"]})
+    mtp_logits = unembed(cfg, params["embed"],
+                         apply_norm(cfg, mp["final_norm"], hm))
+    return logits, mtp_logits
 
 
 def init_cache(cfg, batch: int, max_seq: int, device="cuda"):

@@ -6,9 +6,11 @@ params' device and runs ``accum_steps`` microbatches in a Python loop (the
 reference's ``lax.scan``), accumulating grads in ``cfg.grad_accum_dtype``;
 then global-norm clipping and the optimizer update, AdamW or Adafactor
 (momentum 0.9, bf16) per the arch config, as the reference picks them.
-Eager: there is no jit, and the state is replaced, not donated.
-Multi-token prediction, encoder inputs, sharding constraints and the
-reference's ``state_logical_axes`` (sharding) are not ported yet.
+A config with ``mtp_depth`` (deepseek-v3-671b) adds DeepSeek-V3's
+multi-token-prediction loss at weight 0.3, as the reference does.
+Eager: there is no jit, and the state is replaced, not donated. Encoder
+inputs, sharding constraints and the reference's ``state_logical_axes``
+(sharding) are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,11 +18,16 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models import transformer
 from repro_torch.models.common import DTYPES, padded_vocab, tree_leaves
 from repro_torch.optim.adafactor import Adafactor
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.grad import clip_by_global_norm
 from repro_torch.optim.schedule import warmup_cosine
+
+
+# the weight of the multi-token-prediction loss, as the reference's
+MTP_WEIGHT = 0.3
 
 
 class TrainState(NamedTuple):
@@ -71,15 +78,25 @@ def _fill(t, it):
 
 def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,
                     clip_norm: float = 1.0):
-    if cfg.mtp_depth or cfg.num_encoder_layers or cfg.cross_source:
-        raise NotImplementedError(f"{cfg.name}: the train step with MTP or "
-                                  f"with encoder inputs is not ported yet")
+    if cfg.num_encoder_layers or cfg.cross_source:
+        raise NotImplementedError(f"{cfg.name}: the train step with encoder "
+                                  f"inputs is not ported yet")
     vp = padded_vocab(cfg)
     adt = DTYPES[cfg.grad_accum_dtype]
 
-    def loss_and_grads(leaves, params, micro):
+    def loss_fn(params, micro):
+        if cfg.mtp_depth:
+            logits, mtp_logits = transformer.forward_with_mtp(
+                cfg, params, micro["inputs"])
+            loss = cross_entropy(logits, micro["labels"], vp)
+            # MTP target at position t is token t+2 = labels[t+1]
+            mtp_loss = cross_entropy(mtp_logits, micro["labels"][:, 1:], vp)
+            return loss + MTP_WEIGHT * mtp_loss
         logits = model.forward(params, micro["inputs"])
-        loss = cross_entropy(logits, micro["labels"], vp)
+        return cross_entropy(logits, micro["labels"], vp)
+
+    def loss_and_grads(leaves, params, micro):
+        loss = loss_fn(params, micro)
         return loss, torch.autograd.grad(loss, leaves)
 
     def train_step(state: TrainState, batch):

@@ -409,7 +409,7 @@ def test_port_refuses_mla_mtp_cross_and_encoders(arch):
     reference's tree: the ``cross`` and ``enc`` kinds, ``enc_proj``, the
     stacked ``encoder`` and ``enc_final_norm``
     (``tests/test_torch_cross.py``). What the port still refuses is
-    training with them (below), and MTP training."""
+    training with them (below)."""
     jcfg = jget_config(arch)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)})
@@ -427,17 +427,6 @@ def test_train_step_refuses_encoder_inputs(arch):
     cfg = reduced(get_config(arch))
     model = build_model(cfg)
     with pytest.raises(NotImplementedError, match="encoder inputs"):
-        make_train_step(cfg, model, Adafactor(lr=constant(LR)))
-
-
-def test_train_step_refuses_mtp():
-    """deepseek-v3-671b builds and serves, but its train step needs the
-    reference's ``forward_with_mtp`` and MTP loss, which the port lacks:
-    ``make_train_step`` refuses it."""
-    cfg = reduced(get_config("deepseek-v3-671b"))
-    assert cfg.mtp_depth == 1
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="MTP"):
         make_train_step(cfg, model, Adafactor(lr=constant(LR)))
 
 
