@@ -7,10 +7,12 @@ reference's ``lax.scan``), accumulating grads in ``cfg.grad_accum_dtype``;
 then global-norm clipping and the optimizer update, AdamW or Adafactor
 (momentum 0.9, bf16) per the arch config, as the reference picks them.
 A config with ``mtp_depth`` (deepseek-v3-671b) adds DeepSeek-V3's
-multi-token-prediction loss at weight 0.3, as the reference does.
-Eager: there is no jit, and the state is replaced, not donated. Encoder
-inputs, sharding constraints and the reference's ``state_logical_axes``
-(sharding) are not ported yet.
+multi-token-prediction loss at weight 0.3, as the reference does. A
+config with an encoder or a cross source (whisper-large-v3,
+llama-3.2-vision-90b) takes the batch's float ``enc_input`` (B, encoder_seq,
+encoder_dim), sliced into microbatches with the tokens. Eager: there is no
+jit, and the state is replaced, not donated. Sharding constraints and the
+reference's ``state_logical_axes`` (sharding) are not ported yet.
 """
 from __future__ import annotations
 
@@ -78,21 +80,19 @@ def _fill(t, it):
 
 def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,
                     clip_norm: float = 1.0):
-    if cfg.num_encoder_layers or cfg.cross_source:
-        raise NotImplementedError(f"{cfg.name}: the train step with encoder "
-                                  f"inputs is not ported yet")
     vp = padded_vocab(cfg)
     adt = DTYPES[cfg.grad_accum_dtype]
 
     def loss_fn(params, micro):
         if cfg.mtp_depth:
             logits, mtp_logits = transformer.forward_with_mtp(
-                cfg, params, micro["inputs"])
+                cfg, params, micro["inputs"], micro.get("enc_input"))
             loss = cross_entropy(logits, micro["labels"], vp)
             # MTP target at position t is token t+2 = labels[t+1]
             mtp_loss = cross_entropy(mtp_logits, micro["labels"][:, 1:], vp)
             return loss + MTP_WEIGHT * mtp_loss
-        logits = model.forward(params, micro["inputs"])
+        logits = model.forward(params, micro["inputs"],
+                               micro.get("enc_input"))
         return cross_entropy(logits, micro["labels"], vp)
 
     def loss_and_grads(leaves, params, micro):

@@ -162,9 +162,12 @@ def test_init_mla_cache_shapes():
 
 # -------------------------------------------------- the absorbed-decode check
 
-# the check's bound in f32 (relative L2 error of a row's logits): the two
-# paths agree to 4.3e-7 to 7.5e-7 here; the mutations miss by 0.53 to 1.56,
-# above the card's bf16 bound (chip_smoke.MLA_DECODE_TOL, 3.1e-2) too
+# the check's bound in f32 (relative L2 error of a row's logits, and of its
+# first layer's attention output): the two paths agree to 4.3e-7 to 7.5e-7
+# at the logits and 3.0e-7 to 5.5e-7 at the attention output here; the
+# mutations miss by 0.53 to 1.56 at the logits and 0.36 to 1.43 at the
+# attention output, above the card's bf16 bound (chip_smoke.MLA_DECODE_TOL,
+# 3.1e-2) too
 F32_DECODE_TOL = 1e-4
 
 
@@ -199,11 +202,13 @@ def _mutant(mutation):
                                       "wk_b not absorbed"])
 def test_absorbed_decode_check(mutation, monkeypatch, capsys):
     """``chip_smoke.absorbed_decode_check`` on reduced deepseek-v3 (4 rows
-    of 24 tokens): the port's absorbed decode passes it on rows 0 to 2; row
-    3's new token comes last in the prefill's expert order and is dropped
-    past an expert's capacity there (its logits then differ by 3.7e-2), so
-    the check leaves it out. Each mutation of the decode fails the check
-    on the error bound of a row it holds."""
+    of 24 tokens): the port's absorbed decode passes it at the first
+    layer's attention output on every row, and at the logits on rows 0 to
+    2; row 3's new
+    token comes last in the prefill's expert order and is dropped past an
+    expert's capacity there (its logits then differ by 3.7e-2), so the
+    logits leave it out. Each mutation of the decode fails the check on
+    the error bound of a row it holds."""
     smoke = _chip_smoke()
     cfg = reduced(get_config(ARCH))
     model = build_model(cfg)
@@ -218,10 +223,11 @@ def test_absorbed_decode_check(mutation, monkeypatch, capsys):
         out = capsys.readouterr().out
         assert "FAIL: absorbed decode check: relative error" in out, out
         return
-    held = smoke.absorbed_decode_check(cfg, model, params, prompts,
-                                       F32_DECODE_TOL)
+    held, attn = smoke.absorbed_decode_check(cfg, model, params, prompts,
+                                             F32_DECODE_TOL)
     assert sorted(held) == [0, 1, 2]
     assert max(held.values()) <= F32_DECODE_TOL
+    assert len(attn) == 4 and max(attn) <= F32_DECODE_TOL
     assert "left out: row 3 (dropped in the prefill)" in \
         capsys.readouterr().out
 

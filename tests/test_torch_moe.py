@@ -408,8 +408,8 @@ def test_port_refuses_mla_mtp_cross_and_encoders(arch):
     encoder), taken as the port's ModelConfig, build in the port with the
     reference's tree: the ``cross`` and ``enc`` kinds, ``enc_proj``, the
     stacked ``encoder`` and ``enc_final_norm``
-    (``tests/test_torch_cross.py``). What the port still refuses is
-    training with them (below)."""
+    (``tests/test_torch_cross.py``); both train too (below, and
+    ``tests/test_torch_enc_train.py``)."""
     jcfg = jget_config(arch)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)})
@@ -421,13 +421,27 @@ def test_port_refuses_mla_mtp_cross_and_encoders(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llama-3.2-vision-90b"])
-def test_train_step_refuses_encoder_inputs(arch):
-    """Both cross-attention configs build and serve, but the train step
-    with encoder inputs is not ported: ``make_train_step`` refuses them."""
+def test_train_step_takes_encoder_inputs(arch):
+    """Both cross-attention configs build a train step and take one step on
+    a batch with ``enc_input`` (B, encoder_seq, encoder_dim): a finite loss
+    and every param moved. ``tests/test_torch_enc_train.py`` holds the step
+    against the reference's."""
     cfg = reduced(get_config(arch))
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="encoder inputs"):
-        make_train_step(cfg, model, Adafactor(lr=constant(LR)))
+    params = model.init(0, device="cpu")
+    opt = Adafactor(lr=constant(LR))
+    rng = np.random.default_rng(4)
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 9)))
+    enc = torch.as_tensor(rng.normal(size=(2, cfg.encoder_seq,
+                                           cfg.encoder_dim)),
+                          dtype=torch.float32)
+    batch = {"inputs": tok[:, :-1], "labels": tok[:, 1:], "enc_input": enc}
+    state, m = make_train_step(cfg, model, opt)(
+        TrainState(params, opt.init(params)), batch)
+    assert torch.isfinite(m["loss"]) and m["grad_norm"] > 0
+    for (name, a), (_, b) in zip(ser.tree_paths(state.params),
+                                 ser.tree_paths(params)):
+        assert not torch.equal(a, b), f"{name}: not updated"
 
 
 def test_serve_cli_runs_reduced_llama4_on_cpu(capsys):
