@@ -11,11 +11,15 @@ Phases; any failure exits non-zero:
      tensor-core kernel: softcap, window, non-causal, GQA, ragged S), a
      tile-ragged windowed case and a q_offset case with Sq < Sk, small f32
      and bf16 head-dim-256 cases and both serving prefill shapes (bf16 at
-     head dim 256 within one bf16 ulp); both RG-LRU kernels (the ring at
-     S >= one time tile, the step kernel below) bit for bit in f32 and bf16
-     at the recurrentgemma prefill and decode shapes, ragged S and D, rows
-     off 16-byte boundaries, B = 1 and h0 None, and two launches at the
-     prefill shape bit-identical; the mLSTM forward at the reference's three test shapes (f32, the CUDA-core
+     head dim 256 within one bf16 ulp); both RG-LRU forward kernels (the
+     ring at S >= one time tile, the step kernel below), with and without
+     the f32 carry they write under autograd, and the RG-LRU backward
+     kernel bit for bit in f32 and bf16 at the recurrentgemma prefill,
+     decode and training (2, 4096, 4096) shapes, ragged S and D, rows off
+     16-byte boundaries, B = 1, h0 and dh_last given and None, two launches
+     bit-identical at the prefill shape (the forward) and the training
+     shape (both), and autograd through the kernels' Function there equal
+     to the kernels; the mLSTM forward at the reference's three test shapes (f32, the CUDA-core
      kernel) and, through the tensor-core kernel within one bf16 ulp, a bf16
      twin of each, head dims 128 and 256, a chunk of 40 and the xlstm-350m
      training shape (launched twice there: bit-identical), its m bit for
@@ -44,9 +48,11 @@ Phases; any failure exits non-zero:
      llama4's, launched twice (bit-identical) and seen by the profiler in
      ``flash_mma_kernel<192>``; the bf16 D = 256 backward at its dk and dv
      blocks' edges (gemma3-4b's 8 / 4 heads with its 1024 window at a
-     ragged S, a q offset, non-causal Sq != Sk, softcap) and at
-     recurrentgemma-9b's attention over 8 x 2048 tokens (two launches
-     bit-identical). The backward at head dim 192 on the D = 192 cases in
+     ragged S, a q offset, non-causal Sq != Sk, softcap), at
+     recurrentgemma-9b's attention over 8 x 2048 tokens and, with the
+     forward with row statistics, at its training shape (2, 4096, 16, 1,
+     256) with its 2048 window (two launches bit-identical; the forward
+     held per element like llama4's, the backward like whisper's). The backward at head dim 192 on the D = 192 cases in
      f32 (2e-5) and bf16 (one bf16 ulp), on bf16 cases at its dk and dv
      blocks' edges with MLA's heads (a q offset with Sq < Sk, non-causal
      Sq != Sk, V and dO zero in their last 64 columns, where dv must come
@@ -72,11 +78,18 @@ Phases; any failure exits non-zero:
      bound, tokens equal to those served from the un-saved params, and
      every kernel of the path must have launched the expected number of
      times (counts are zeroed just before and read just after).
-  3b. the second path, the serving restart of slice 2: full-width
-     recurrentgemma-9b (one repeat of each segment unit: 4 of 38 layers)
-     restarts from a params-only checkpoint and serves 3 request batches of
-     3072-token prompts (past the 2048-token window), with the same checks;
-     the RG-LRU kernel runs in every prefill and decode step.
+  3b. the second and twelfth paths, slices 12 and 2: full-width
+     recurrentgemma-9b (one repeat of each segment unit: 4 of 38 layers,
+     1.94 G params) trains with AdamW through ``train_loop`` on batches of
+     2 x 4096 tokens (past the 2048-token window): run A 4 steps, run B the
+     same 4 from the same seed without the buffer, equal to run A bit for
+     bit in every leaf; each step launches the RG-LRU forward (with its
+     f32 carry) and backward once an rglru layer and the D = 256 flash
+     forward and backward once (24 / 24 / 8 / 8). Then run A's params
+     restart from a params-only checkpoint and serve 3 request batches of
+     3072-token prompts, with the same checks as slice 1's; the RG-LRU
+     kernel runs in every prefill and decode step. The path runs with the
+     allocator's expandable segments (``expandable_segments``).
   3c. the third path, the training restart of slice 3: full-width
      xlstm-350m (one repeat of its segment unit: 7 mLSTM + 1 sLSTM of 24
      layers, f32 params) trains through ``launch/train.py::train_loop`` on
@@ -86,7 +99,7 @@ Phases; any failure exits non-zero:
      seed and takes 2 more. B's params and moments must equal A's bit for
      bit. The mLSTM kernel runs in every forward (7 launches a step).
   3d. the fourth path, the training restart of slice 4: full-width
-     starcoder2-3b (2 of 30 layers, bf16 params, f32 AdamW moments) through
+     starcoder2-3b (1 of 30 layers, bf16 params, f32 AdamW moments) through
      the same restart at 4 + 4 steps of 8 x 2048 tokens; the flash forward
      (with row statistics) and the flash backward kernel run once a layer
      in every step; besides them only quantize / dequantize run, for the
@@ -98,7 +111,7 @@ Phases; any failure exits non-zero:
      the flash forward and backward (head dim 128) run once a layer in
      every step, quantize / dequantize once for each int8 leaf.
   3f. the sixth path, the serving restart of slice 6: h2o-danube-1.8b at
-     full width, depth cut to 4 of its 24 layers, from a params-only
+     full width, depth cut to 2 of its 24 layers, from a params-only
      checkpoint, 3 request batches of 4 prompts of 5120 tokens (past its
      4096-token window); the flash forward at head dim 80 runs once a layer
      in every prefill.
@@ -132,8 +145,8 @@ Phases; any failure exits non-zero:
      flash forward at head dim 192 runs once an MLA layer in every
      prefill.
   3i. the ninth and eleventh paths, slices 9 and 11: whisper-large-v3 at
-     full width (d_model 1280, 20 heads at head dim 64), depth cut to 4 enc
-     and 4 cross layers of its 32 + 32 (0.29 G params). It trains with
+     full width (d_model 1280, 20 heads at head dim 64), depth cut to 2 enc
+     and 2 cross layers of its 32 + 32 (0.19 G params). It trains with
      AdamW through ``train_loop`` on the pipeline's batches of 8 x 448
      tokens over 8 x 1500 frames of 1280: run A 4 steps; run B 2 steps, an
      unquantized checkpoint (bf16 params, f32 moments) through 4 servers of
@@ -141,10 +154,10 @@ Phases; any failure exits non-zero:
      steps, equal to run A bit for bit; each step runs the flash forward
      and backward once an enc layer (non-causal over the frames) and twice
      a cross layer (causal over the tokens, non-causal over the frames):
-     96 launches each. Then 3 request batches of 4 x 1500 frames (30 s of
+     48 launches each. Then 3 request batches of 4 x 1500 frames (30 s of
      audio from the stub frontend, drawn from the seed) and 224-token
      prompts, 32 new tokens, are served from run B's params and from run
-     A's (equal tokens; 72 forward launches); a profile of the prefill
+     A's (equal tokens; 36 forward launches); a profile of the prefill
      splits the encoder's device time from the decoder's, one of a decode
      step the attention over the context cache.
   4. numbers for each path, taken right after it (its model is freed before
@@ -156,7 +169,8 @@ Phases; any failure exits non-zero:
      (training; xlstm-350m's step times are its run A's and its step is
      not traced: its sLSTM loop makes a trace of it take ~30 s), a device
      profile (training: the flash forward's and backward's share of a
-     step's busy time); then a JSON
+     step's busy time, and recurrentgemma-9b's RG-LRU forward's and
+     backward's); then a JSON
      line with each
      kernel's launches, time, bound, plain-version time and the time of one
      PyTorch library call for the same function.
@@ -166,6 +180,7 @@ line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -231,17 +246,32 @@ D256_CASES = [(2, 96, 96, 4, 1, 256, True, 32, 0.0, 0, "float32", 2e-5),
 # passes None to the wrapper
 RG_LRU_PREFILL = (RG_BATCH, RG_PROMPT, RG_WIDTH, "bfloat16", "zero")
 RG_LRU_DECODE = (RG_BATCH, 1, RG_WIDTH, "bfloat16", "normal")
+# slice 12: recurrentgemma-9b trains at full width and 3b's cut with AdamW
+# (the config's: f32 moments and grad accumulation, bf16 params) on the
+# pipeline's batches of 2 x 4096 tokens, 8192 a step as slice 10's and
+# past the 2048-token window; the batch shape is chosen for the card's
+# memory (the step holds the 2 x 4096 x 256,000 logits in f32 and their
+# gradient beside a 19.40 GB train state), not taken from a published
+# training setup. Run A 4 steps, run B the same 4 from the same seed
+# without the buffer: the AdamW state's 19.40 GB would take a round of its
+# own through it (slice 10's 12.51 GB took 137 s and 58.4 GB of the host's
+# 96); run A's params then go through 3b's params-only restart
+RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 2, 4096, 4
+# the scan of its training step: the forward (with the f32 carry) and the
+# backward, from a zero state (h0 None), no gradient of h_last
+RG_LRU_TRAIN = (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH, "bfloat16", "none")
 
 
 def _rg_lru_cases(tile_s):
-    """Both serving shapes and the kernels' edges, each in f32 and bf16:
-    a ragged S (300, one tile + 1), S = 2, S on each side of the step /
-    ring threshold (one time tile), a D that is not a multiple of the
-    ring's 64 / 32 channels (4100: bf16 rows not 16-byte aligned, so
-    shifted rows; 4104: aligned), D = 1030 (neither dtype aligned), B = 1,
-    and h0 None."""
+    """The serving and training shapes and the kernels' edges, each in f32
+    and bf16: a ragged S (300, one tile + 1), S = 2, S on each side of the
+    step / ring threshold (one time tile), a D that is not a multiple of
+    the ring's 64 / 32 channels (4100: bf16 rows not 16-byte aligned, so
+    shifted rows; 4104: aligned), D = 1030 (neither dtype aligned, nor a
+    multiple of the backward's 64 channels), B = 1, and h0 None."""
     shapes = [(RG_BATCH, RG_PROMPT, RG_WIDTH, "zero"),
               (RG_BATCH, 1, RG_WIDTH, "normal"),
+              (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH, "none"),
               (2, 300, 384, "normal"), (2, tile_s + 1, 384, "none"),
               (3, 2, 384, "normal"), (2, tile_s - 1, 320, "normal"),
               (2, tile_s, 320, "none"), (2, 200, 4100, "normal"),
@@ -285,12 +315,15 @@ MLSTM_CASES = MLSTM_F32_CASES + [
     MLSTM_TRAIN_CASE]
 MLSTM_M_TOL = 1e-5
 
-# slice 4: starcoder2-3b training at full width, LAYERS of its 30 layers.
-# Run A 4 steps, run B 2 + 2 (8 and 4 + 4 before slice 11, for time: its
-# four resumed steps took 20.0 to 33.2 s each on one host while the
-# survivors re-replicated after the kill)
+# slice 4: starcoder2-3b training at full width, SC_LAYERS of its 30 layers
+# (LAYERS before slice 12, for time: slice 12's training took the run to
+# 1095.6 s of its 1200 on one host, and this path's 3.43 GB checkpoint
+# round with its kill took 136.7 s of it). Run A 4 steps, run B 2 + 2 (8
+# and 4 + 4 before slice 11, for time: its four resumed steps took 20.0 to
+# 33.2 s each on one host while the survivors re-replicated after the kill)
+SC_LAYERS = 1
 SC_BATCH, SC_SEQ, SC_STEPS = 8, 2048, 4
-SC_DRAM = 8 << 30     # ~1.60 GiB a server: 2 x ~3.4 GB over 4 (XL_DRAM)
+SC_DRAM = 8 << 30     # ~1.16 GiB a server: 2 x ~2.5 GB over 4 (XL_DRAM)
 # the flash backward against its plain version (elementwise,
 # |kernel - plain| <= tol + tol |plain|, on the same q, k, v, o, m, l, dO):
 # f32 at the reference's f32 kernel tolerance of 2e-5 (both sum in f32, in
@@ -347,8 +380,9 @@ DS_TRAIN_FWD_CASE = DS_TRAIN_ATTN_CASE[:11] + (3e-2,)
 H2O_BATCH, H2O_PROMPT, H2O_GEN, H2O_REQUESTS = 4, 5120, 32, 3
 H2O_WINDOW, H2O_HEADS, H2O_KV, H2O_HEAD_DIM = 4096, 32, 8, 80
 # depth cut from 24 layers for time: with all 24 (and whisper's 32 + 32)
-# the whole run took 1134.1 s of its 1200 on one H100 host
-H2O_LAYERS = 4
+# the whole run took 1134.1 s of its 1200 on one H100 host; 4 until slice
+# 12, whose training took the run to 1095.6 s on one host
+H2O_LAYERS = 2
 H2O_DRAM = 4 << 30    # at most ~1.83 GB a server (3.66 GB at full depth)
 # head dim 80 in f32 (2e-5) and bf16 (the reference's 3e-2) at GQA 4: a
 # window of 40 whose edge falls inside the 64-key tiles of a ragged S, and
@@ -445,8 +479,9 @@ MLA_DECODE_TOL = 8 * 2.0 ** -8
 # 448-token decoder context), 32 new tokens; MHA at head dim 64
 WH_BATCH, WH_PROMPT, WH_GEN, WH_REQUESTS = 4, 224, 32, 3
 WH_FRAMES, WH_HEADS, WH_HEAD_DIM = 1500, 20, 64
-# depth cut from 32 enc + 32 cross layers for time, as H2O_LAYERS
-WH_LAYERS = 4
+# depth cut from 32 enc + 32 cross layers for time, as H2O_LAYERS (4 + 4
+# until slice 12)
+WH_LAYERS = 2
 WH_DRAM = 4 << 30     # at most ~1.47 GiB a server (3.16 GB at full depth)
 # head dim 64 without a causal mask in f32 (2e-5) and bf16 (the reference's
 # 3e-2): Sk ragged in the 64-key tiles (220 = 3 x 64 + 28, as 1500 = 23 x 64
@@ -486,11 +521,19 @@ WH_TRAIN_SELF_CASE = (WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_SEQ) \
 P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE, WH_ENC_CASE,
                  WH_CROSS_CASE, WH_SELF_CASE, WH_TRAIN_ENC_CASE,
                  WH_TRAIN_CROSS_CASE)
-# the D = 256 backward at recurrentgemma-9b's attention layer over 8 x 2048
-# tokens (its 2048 window: causal at this S); no main path trains at head
-# dim 256
-RG_TRAIN_ATTN_CASE = (8, 2048, 2048, RG_HEADS, 1, RG_HEAD_DIM, True,
-                      RG_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
+# the D = 256 forward (with row statistics) and backward at recurrentgemma-9b's
+# attention layer in slice 12's train step: 2 x 4096 tokens, where the
+# 2048 window cuts every query row past 2048 (64 key tiles a (b, kv head));
+# the forward held like the prefill's, per element, the backward like
+# whisper's (an atol of one bf16 ulp of the gradient's RMS). The same layer
+# over 8 x 2048 tokens, where the window is inert (the shape
+# ``tune_flash_bwd --head-dim 256`` times), stays among the edge cases
+RG_TRAIN_ATTN_CASE = (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_SEQ, RG_HEADS,
+                      1, RG_HEAD_DIM, True, RG_WINDOW, 0.0, 0, "bfloat16",
+                      D256_BF16_TOL)
+P_ROUND_CASES += (RG_TRAIN_ATTN_CASE,)
+BWD_EDGE_CASES.append((8, 2048, 2048, RG_HEADS, 1, RG_HEAD_DIM, True,
+                       RG_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL))
 # slice 10's flash calls in a train step, V (and dO) padded: the trunk's
 # layer over 2048 tokens, the MTP layer over 2047; the forward (with row
 # statistics) held like the prefill's, per element
@@ -523,11 +566,12 @@ TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE,
 # mean square over its tensor (one bf16 ulp of a typical element) in place
 # of an atol of D256_BF16_TOL: whisper's training shapes, whose 1500-key
 # softmax leaves dq, dk and dv near 0.03, where 8e-3 would pass a lost
-# ragged tile's share. The kernel splits P and dS into hi / lo bf16 pairs
+# ragged tile's share, and recurrentgemma-9b's over its 2048-key window. The kernel splits P and dS into hi / lo bf16 pairs
 # (2^-16 of each), so it differs from the plain version by the one bf16
 # rounding of each result (the rtol) and f32 sums in another order (far
 # below the atol)
-BWD_RMS_CASES = (WH_TRAIN_ENC_CASE, WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE)
+BWD_RMS_CASES = (WH_TRAIN_ENC_CASE, WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE,
+                 RG_TRAIN_ATTN_CASE)
 
 BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
                           else D256_BF16_TOL,)
@@ -708,11 +752,19 @@ def _rg_lru_inputs(case, gen):
 
 
 def check_rg_lru():
-    """Both RG-LRU kernels bit for bit against the plain version on every
-    case of ``_rg_lru_cases``, on inputs off a 16-byte boundary (a and gx
-    at different shifts), and over two launches at the prefill shape; the
-    cases must reach both kernels and both row alignments of the ring in
-    each dtype. Returns the max error. The inputs come from a generator of
+    """Both RG-LRU forward kernels and the backward kernel bit for bit
+    against their plain versions on every case of ``_rg_lru_cases``: the
+    forward without the carry (serving's) and with it (training's: h,
+    h_last and the f32 carry), then the backward's da, dgx and dh0 (with
+    h0) from that carry and a random dh, dh_last given in one dtype of each
+    shape (never at the training shape, whose h_last the model drops); on
+    inputs off a 16-byte boundary (a, gx and dh at different shifts); two
+    launches bit-identical at the prefill shape (the forward) and at the
+    training shape (the forward with its carry, the backward), and there
+    autograd through the kernels' Function equal to the kernels. The cases
+    must reach both forward kernels and both row alignments of the ring in
+    each dtype. Returns the max errors of the forward, the forward at the
+    training shape and the backward. The inputs come from a generator of
     their own, so these cases do not move the other kernels' inputs."""
     import torch
     from repro_torch.kernels import ref
@@ -721,60 +773,117 @@ def check_rg_lru():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
 
-    def run(case, a, gx, h0):
-        h, h_last = rg_lru.rg_lru(a, gx, h0)
-        ph, ph_last = ref.rg_lru(a, gx, h0)
+    def same(x, y):
+        return (x is None and y is None) or torch.equal(x, y)
+
+    def run(case, a, gx, h0, dh, dh_last):
+        h_free, last_free = rg_lru.rg_lru(a, gx, h0)
+        h, h_last, h32 = rg_lru.rg_lru(a, gx, h0, return_carry=True)
+        ph, ph_last, p32 = ref.rg_lru(a, gx, h0, return_carry=True)
+        grads = rg_lru.rg_lru_bwd(a, h32, dh, dh_last, h0)
+        plain = ref.rg_lru_bwd(a, p32, dh, dh_last, h0)
         torch.cuda.synchronize()
         de = max((h.float() - ph.float()).abs().max().item(),
-                 (h_last.float() - ph_last.float()).abs().max().item())
+                 (h_last.float() - ph_last.float()).abs().max().item(),
+                 (h32 - p32).abs().max().item())
+        dg = max((g.float() - pg.float()).abs().max().item()
+                 for g, pg in zip(grads, plain) if g is not None)
         check(h.dtype == a.dtype and h.shape == a.shape
-              and h_last.shape == (a.shape[0], a.shape[2]),
-              f"rg_lru {case}: output {h.dtype} {tuple(h.shape)}")
-        check(torch.isfinite(h.float()).all().item(), f"rg_lru {case}: "
-              f"non-finite output")
-        check(torch.equal(h, ph) and torch.equal(h_last, ph_last),
+              and h_last.shape == (a.shape[0], a.shape[2])
+              and h32.dtype == torch.float32 and h32.shape == a.shape,
+              f"rg_lru {case}: output {h.dtype} {tuple(h.shape)}, carry "
+              f"{h32.dtype} {tuple(h32.shape)}")
+        check(all(g.dtype == a.dtype for g in grads if g is not None)
+              and grads[0].shape == a.shape and grads[1].shape == a.shape
+              and (grads[2] is None) == (h0 is None),
+              f"rg_lru_bwd {case}: outputs "
+              f"{[None if g is None else g.dtype for g in grads]}")
+        check(all(torch.isfinite(x.float()).all().item()
+                  for x in (h, h32, *grads) if x is not None),
+              f"rg_lru {case}: non-finite output")
+        check(torch.equal(h, h_free) and torch.equal(h_last, last_free),
+              f"rg_lru {case}: the forward with its carry differs from the "
+              f"one without")
+        check(torch.equal(h, ph) and torch.equal(h_last, ph_last)
+              and torch.equal(h32, p32),
               f"rg_lru {case}: differs from its plain version")
-        return de, h, h_last
+        check(all(same(g, pg) for g, pg in zip(grads, plain)),
+              f"rg_lru_bwd {case}: differs from its plain version")
+        return de, dg, (h, h_last, h32), grads
 
-    e, reached = 0.0, set()
-    for case in _rg_lru_cases(rg_lru.TILE_S):
+    e_fwd = e_bwd = e_train = 0.0
+    reached = set()
+    for i, case in enumerate(_rg_lru_cases(rg_lru.TILE_S)):
         a, gx, h0 = _rg_lru_inputs(case, gen)
+        dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
+        dh_last = (torch.randn((a.shape[0], a.shape[2]), generator=gen,
+                               device="cuda").to(a.dtype)
+                   if (i + i // 2) % 2 and case != RG_LRU_TRAIN else None)
         plan = rg_lru.launch_plan(*a.shape, a.dtype)
+        bwd_grid = rg_lru.bwd_launch_plan(a.shape[0], a.shape[2]).grid
         reached.add((case[3], plan.kernel, plan.aligned))
-        de, h, h_last = run(case, a, gx, h0)
+        de, dg, fwd, grads = run(case, a, gx, h0, dh, dh_last)
         print(f"[rg_lru] {case}: {plan.kernel} kernel, "
               f"{'aligned' if plan.aligned else 'shifted'} rows, grid "
-              f"{plan.grid}; max|kernel-plain| {de:.3e} (tol 0: "
+              f"{plan.grid}; max|kernel-plain| {de:.3e} in h, h_last and "
+              f"the f32 carry; backward (dh_last "
+              f"{'given' if dh_last is not None else 'None'}, grid "
+              f"{bwd_grid}) {dg:.3e} in da, "
+              f"dgx{', dh0' if h0 is not None else ''} (tol 0: "
               f"bit-identical)", flush=True)
         if case == RG_LRU_PREFILL:
             h2, h_last2 = rg_lru.rg_lru(a, gx, h0)
             torch.cuda.synchronize()
-            same = torch.equal(h, h2) and torch.equal(h_last, h_last2)
-            print(f"[rg_lru] {case}: two launches bit-identical: {same}",
+            again = torch.equal(fwd[0], h2) and torch.equal(fwd[1], h_last2)
+            print(f"[rg_lru] {case}: two launches bit-identical: {again}",
                   flush=True)
-            check(same, f"rg_lru {case}: two launches differ")
+            check(again, f"rg_lru {case}: two launches differ")
             del h2, h_last2
-        e = max(e, de)
-        del a, gx, h0, h, h_last
-    # rows of 16-byte multiples, but a one and gx three elements past a
-    # 16-byte boundary: each row read at its own shift, two shifts a row
+        if case == RG_LRU_TRAIN:
+            e_train = de
+            fwd2 = rg_lru.rg_lru(a, gx, h0, return_carry=True)
+            grads2 = rg_lru.rg_lru_bwd(a, fwd[2], dh, dh_last, h0)
+            leaves = [x.detach().requires_grad_(True) for x in (a, gx)]
+            out, _ = rg_lru.rg_lru(*leaves)
+            auto = torch.autograd.grad(out, leaves, dh)
+            torch.cuda.synchronize()
+            again = all(torch.equal(x, y) for x, y in zip(fwd, fwd2)) \
+                and all(same(x, y) for x, y in zip(grads, grads2))
+            through = torch.equal(out, fwd[0]) and all(
+                torch.equal(x, y) for x, y in zip(auto, grads[:2]))
+            print(f"[rg_lru] {case}: two launches bit-identical in h, "
+                  f"h_last, the carry and da, dgx: {again}; autograd "
+                  f"through the kernels' Function equals them bit for bit: "
+                  f"{through}", flush=True)
+            check(again, f"rg_lru {case}: two launches differ")
+            check(through, f"rg_lru {case}: autograd through the Function "
+                  f"differs from the kernels")
+            del fwd2, grads2, leaves, out, auto
+        e_fwd, e_bwd = max(e_fwd, de), max(e_bwd, dg)
+        del a, gx, h0, dh, dh_last, fwd, grads
+    # rows of 16-byte multiples, but a one, gx three and dh five elements
+    # past a 16-byte boundary: each row read at its own shift, two shifts a
+    # row in the forward
     for dtype in ("bfloat16", "float32"):
         case = (2, 300, 384, dtype, "normal")
         a, gx, h0 = _rg_lru_inputs(case, gen)
-        a, gx = (torch.cat([x.new_zeros(k), x.reshape(-1)])[k:].view(x.shape)
-                 for x, k in ((a, 1), (gx, 3)))
+        dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
+        a, gx, dh = (torch.cat([x.new_zeros(k),
+                                x.reshape(-1)])[k:].view(x.shape)
+                     for x, k in ((a, 1), (gx, 3), (dh, 5)))
         plan = rg_lru.launch_plan(*a.shape, a.dtype, aligned=False)
         reached.add((dtype, plan.kernel, plan.aligned))
-        de, *_ = run(case, a, gx, h0)
-        print(f"[rg_lru] {case}, a and gx 1 and 3 elements past a 16-byte "
-              f"boundary: {plan.kernel} kernel, shifted rows; "
-              f"max|kernel-plain| {de:.3e} (tol 0)", flush=True)
-        e = max(e, de)
+        de, dg, *_ = run(case, a, gx, h0, dh, None)
+        print(f"[rg_lru] {case}, a, gx and dh 1, 3 and 5 elements past a "
+              f"16-byte boundary: {plan.kernel} kernel, shifted rows; "
+              f"max|kernel-plain| {de:.3e}, backward {dg:.3e} (tol 0)",
+              flush=True)
+        e_fwd, e_bwd = max(e_fwd, de), max(e_bwd, dg)
     want = {(dt, k, al) for dt in ("bfloat16", "float32")
             for k, al in (("step", True), ("ring", True), ("ring", False))}
     check(reached == want, f"rg_lru cases reached {sorted(reached)}, "
           f"not every kernel and row alignment {sorted(want)}")
-    return e
+    return e_fwd, e_train, e_bwd
 
 
 def _within(what, out, plain, tol, atol=None):
@@ -958,7 +1067,8 @@ def check_kernels(gen):
             WH_CROSS_CASE: "flash_attention_whisper_cross",
             WH_SELF_CASE: "flash_attention_whisper_self",
             WH_TRAIN_ENC_CASE: "flash_attention_train_whisper",
-            WH_TRAIN_CROSS_CASE: "flash_attention_train_whisper_cross"}
+            WH_TRAIN_CROSS_CASE: "flash_attention_train_whisper_cross",
+            RG_TRAIN_ATTN_CASE: "flash_attention_train_d256"}
     for case in (ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES
                  + D192_CASES + D64_CASES + list(rows)):
         *_, causal, window, cap, q_offset, dtype, tol = case
@@ -994,7 +1104,7 @@ def check_kernels(gen):
     err["flash_attention_bwd_mla"] = max(err["flash_attention_bwd_mla"],
                                          results[DS3_MTP_ATTN_CASE][0])
 
-    err["rg_lru"] = check_rg_lru()
+    err["rg_lru"], err["rg_lru_train"], err["rg_lru_bwd"] = check_rg_lru()
 
     for case in MLSTM_CASES:
         shape, chunk, dtype, atol, rtol = case
@@ -1078,13 +1188,14 @@ def check_kernels(gen):
 
 
 def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
-                    dram_capacity, train_state, enc_input=None):
+                    dram_capacity, train_state, enc_input=None, params=None):
     """A serving path: build -> save through the burst buffer -> restore
     onto ``device`` -> serve. ``train_state``: the checkpoint is a
     training-layout state (params, AdamW moments quantized to int8, steps);
     otherwise params only, as a serving restart reads weights.
     ``enc_input``: the frames every request's prefill encodes (configs with
-    cross layers).
+    cross layers). ``params``: the params to save and serve (trained ones),
+    else drawn from the seed.
 
     Returns (timings, launches, ...) where launches are the kernel counts
     of the save -> restore -> serve run. Raises SystemExit on any
@@ -1100,7 +1211,8 @@ def serving_restart(cfg, device, *, batch, prompt, gen_tokens, requests,
 
     host_step(f"{cfg.name}: init and serve the un-saved params")
     model = build_model(cfg)
-    params = model.init(SEED, device=device)
+    if params is None:
+        params = model.init(SEED, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
     prompts = [torch.randint(1, cfg.vocab_size, (batch, prompt),
@@ -1243,7 +1355,7 @@ def _kernels():
     from repro_torch.kernels import quantize as quant
     from repro_torch.kernels import rg_lru
     return (fa.flash_attention, fa.flash_attention_bwd, rg_lru.rg_lru,
-            mlstm.mlstm, quant.quantize_blockwise,
+            rg_lru.rg_lru_bwd, mlstm.mlstm, quant.quantize_blockwise,
             quant.dequantize_blockwise)
 
 
@@ -1972,6 +2084,51 @@ def _rg_lru_time(case, gen):
             graph_ms(kernel, calls=20))
 
 
+def _rg_lru_train_rows(gen, launches, err_fwd, err_bwd):
+    """The RG-LRU forward with its f32 carry and the backward kernel, each
+    against its plain version, at the training shape RG_LRU_TRAIN (h0 None,
+    no dh_last, as the model calls them). Bounds: the forward reads a and
+    gx and writes h (in a's dtype) and the f32 carry, a multiply and an add
+    an element; the backward reads a, dh (in a's dtype) and the f32 carry
+    and writes da and dgx, 12 bytes an element in bf16, an add and two
+    multiplies an element. No single PyTorch call computes either scan
+    (library null). ``launches``: the training path's counts."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru
+
+    a, gx, h0 = _rg_lru_inputs(RG_LRU_TRAIN, gen)
+    dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
+    b, s, d = a.shape
+    n, es = b * s * d, a.element_size()
+    rows = []
+    fwd = lambda: rg_lru.rg_lru(a, gx, h0, return_carry=True)
+    _, _, h32 = fwd()
+    bwd = lambda: rg_lru.rg_lru_bwd(a, h32, dh)
+    for name, kernel, plain, nbytes, flops, launch_count, err in (
+            ("rg_lru_train", fwd,
+             lambda: ref.rg_lru(a, gx, h0, return_carry=True),
+             es * (3 * n + b * d) + 4 * n, 2 * n, launches["rg_lru"],
+             err_fwd),
+            ("rg_lru_bwd", bwd, lambda: ref.rg_lru_bwd(a, h32, dh),
+             es * 4 * n + 4 * n, 3 * n, launches["rg_lru_bwd"], err_bwd)):
+        bms, by = bound(nbytes, flops, F32_FLOPS)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+            # the backward: no Pallas counterpart, the reference takes the
+            # VJP of its associative scan by autodiff
+            "replaces": ("src/repro/kernels/rg_lru.py:48"
+                         if name == "rg_lru_train"
+                         else "src/repro/kernels/ops.py:196"),
+            "launches": launch_count, "max_abs_err": err,
+            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, iters=3,
+                                                      warmup=1),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "graph_ms": graph_ms(kernel, calls=20)})
+    return rows
+
+
 def _mlstm_row(gen, launches, err):
     """The mLSTM kernel, its plain version and its bound at the training
     shape: q, k, v and the gates read once, h, C, n and m written once; per
@@ -2017,6 +2174,7 @@ def kernel_line(gen, launches, err, bwd_ran):
     ds3, wh = launches["deepseek-v3-671b"], launches["whisper-large-v3"]
     ds3t = launches["deepseek-v3-671b train"]
     wht = launches["whisper-large-v3 train"]
+    rgt = launches["recurrentgemma-9b train"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
                            sc["flash_attention"], err["flash_attention"]),
@@ -2037,6 +2195,10 @@ def kernel_line(gen, launches, err, bwd_ran):
             "decode_ms": dms, "decode_plain_ms": dplain_ms,
             "decode_bound_ms": dbms, "decode_bound_by": dby,
         })
+        # slice 12: the scan's forward with its f32 carry and its backward
+        # at the training shape (2, 4096, 4096) bf16
+        rows += _rg_lru_train_rows(gen, rgt, err["rg_lru_train"],
+                                   err["rg_lru_bwd"])
         x = torch.randn(MOMENT_SHAPE, generator=gen,
                         device="cuda").reshape(-1) * 1e-3
         n = x.numel()
@@ -2132,15 +2294,22 @@ def kernel_line(gen, launches, err, bwd_ran):
                             WH_TRAIN_CROSS_CASE)):
             rows.append(_flash_row(name, case, gen, wht["flash_attention"],
                                    err[name], stats=True))
-    # the backward at the training shapes; no main path trains h2o-danube
-    # or at head dim 256, so the D = 80 and D = 256 rows have no launches;
-    # the D = 192 row's launches: slice 10's trunk and MTP layers; the
-    # whisper rows': slice 11's three shapes, a third at each
+        # slice 12: recurrentgemma-9b's training forward with row
+        # statistics at head dim 256 over 2 x 4096 tokens, window 2048
+        rows.append(_flash_row("flash_attention_train_d256",
+                               RG_TRAIN_ATTN_CASE, gen,
+                               rgt["flash_attention"],
+                               err["flash_attention_train_d256"],
+                               stats=True))
+    # the backward at the training shapes; no main path trains h2o-danube,
+    # so the D = 80 row has no launches; the D = 256 row's: slice 12's
+    # attn_local layer; the D = 192 row's: slice 10's trunk and MTP layers;
+    # the whisper rows': slice 11's three shapes, a third at each
     for name, case, runs, v_pad in (
             ("flash_attention_bwd", TRAIN_ATTN_CASE, sct, 0),
             ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds, 0),
             ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o, 0),
-            ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rg, 0),
+            ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rgt, 0),
             ("flash_attention_bwd_mla", DS3_TRAIN_ATTN_CASE, ds3t,
              DS3_V_PAD),
             ("flash_attention_bwd_whisper", WH_TRAIN_ENC_CASE, wht, 0),
@@ -2231,16 +2400,20 @@ def training_numbers(cfg, device, batch, seq):
           flush=True)
 
 
-# the flash kernels' labels in a device profile, forward and backward
+# the flash kernels' and the RG-LRU kernels' labels in a device profile,
+# forward and backward
 FLASH_FWD = re.compile(r"flash_(mma|simt)_kernel")
 FLASH_BWD = re.compile(r"flash_bwd_")
+RG_LRU_FWD = re.compile(r"rg_lru_(ring|step)_kernel")
+RG_LRU_BWD = re.compile(r"rg_lru_bwd_kernel")
 
 
 def time_training(cfg, device, batch, seq):
     """Step time, tokens/s and peak device memory of the train step at the
     path's shape (one step after a warm-up one, deterministic as on the
     path), one profiled step with the flash forward's and backward's share
-    of its busy time, and the optimizer update's own seconds (host clock
+    of its busy time (and the RG-LRU forward's and backward's, for configs
+    with rglru layers), and the optimizer update's own seconds (host clock
     around ``synchronize``, after a warm-up update; the params stand in for
     the gradients)."""
     import torch
@@ -2265,10 +2438,14 @@ def time_training(cfg, device, batch, seq):
     what = f"{cfg.name} train step (B={batch}, S={seq})"
     busy, port = device_profile(what, lambda: step_fn(state, batches[0]))
     if busy:
-        fwd = sum(ms for name, ms in port.items() if FLASH_FWD.match(name))
-        bwd = sum(ms for name, ms in port.items() if FLASH_BWD.match(name))
+        fwd, bwd, scan, scan_bwd = (
+            sum(ms for name, ms in port.items() if label.match(name))
+            for label in (FLASH_FWD, FLASH_BWD, RG_LRU_FWD, RG_LRU_BWD))
+        rg = (f", the RG-LRU forward {_share(scan, busy)}, its backward "
+              f"{_share(scan_bwd, busy)}" if "rglru" in {
+                  k for unit, _ in cfg.segments for k in unit} else "")
         print(f"[profile] {what}: the flash forward {_share(fwd, busy)}, "
-              f"the flash backward {_share(bwd, busy)} of the busy "
+              f"the flash backward {_share(bwd, busy)}{rg} of the busy "
               f"{busy:.3f} ms", flush=True)
     with torch.no_grad():
         optimizer.update(state.params, state.opt_state, state.params)
@@ -2278,6 +2455,170 @@ def time_training(cfg, device, batch, seq):
         torch.cuda.synchronize()
         update_s = time.perf_counter() - t0
     return step_s, batch * seq / step_s, peak_gb, update_s
+
+
+def rg_training(cfg, device):
+    """Slice 12: ``cfg`` (recurrentgemma-9b's cut) trains through
+    ``launch/train.py::train_loop`` under torch's deterministic algorithms
+    on the pipeline's batches of RG_TRAIN_BATCH x RG_TRAIN_SEQ tokens, no
+    checkpoint: run A RG_TRAIN_STEPS steps, then run B the same steps from
+    the same seed. Run A's train state waits on the host (two train states
+    of 19.40 GB and a step's logits and gradients do not fit the card
+    together); B must equal A bit for bit in every leaf of params and
+    optimizer state (``torch.equal`` leaf by leaf, each of A's leaves
+    brought back to the card in turn), with exactly one RG-LRU forward and
+    backward launch an ``rglru`` layer and one flash forward and backward
+    an ``attn_local`` layer in each step of both runs, and no other
+    kernel. Returns run A's params, back on the card, and the launch
+    counts."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.common import map_tree
+
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    kw = dict(steps=RG_TRAIN_STEPS, global_batch=RG_TRAIN_BATCH,
+              seq_len=RG_TRAIN_SEQ, ckpt_every=0, log_every=1, seed=SEED,
+              device=device)
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        host_step(f"{cfg.name}: train run A")
+        state_a, hist_a, _ = train_loop(cfg, **kw)
+        host_step(f"{cfg.name}: park run A's train state on the host")
+        t0 = time.perf_counter()
+        parked = map_tree(lambda t: t.cpu(), state_a)
+        park_s = time.perf_counter() - t0
+        del state_a
+        host_step(f"{cfg.name}: train run B")
+        state_b, hist_b, _ = train_loop(cfg, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(hist_b == hist_a, f"losses of run B {hist_b} != run A's {hist_a}")
+    check(all(torch.isfinite(torch.tensor(l)) for _, l in hist_a),
+          f"non-finite loss: {hist_a}")
+    host_step(f"{cfg.name}: run B against run A, leaf by leaf")
+    t0 = time.perf_counter()
+    a_leaves = dict(ser.tree_paths(parked))
+    b_leaves = ser.tree_paths(state_b)
+    check([n for n, _ in b_leaves] == list(a_leaves),
+          "run B's state has other leaves")
+    for name, leaf in b_leaves:
+        check(torch.equal(leaf, a_leaves[name].to(device)), f"{name}: run "
+              f"B differs from run A")
+    compare_s = time.perf_counter() - t0
+    n_leaves = len(b_leaves)
+    nbytes = sum(leaf.numel() * leaf.element_size() for _, leaf in b_leaves)
+    del state_b, b_leaves, a_leaves
+    params = map_tree(lambda t: t.to(device), parked.params)
+    del parked
+    per_step = {"rg_lru": _layers(cfg, "rglru"),
+                "rg_lru_bwd": _layers(cfg, "rglru"),
+                "flash_attention": _layers(cfg, "attn_local"),
+                "flash_attention_bwd": _layers(cfg, "attn_local")}
+    want = {name: 0 for name in launches}
+    want.update({name: n * 2 * RG_TRAIN_STEPS
+                 for name, n in per_step.items()})
+    print(f"[main] launches in train run A -> run B: {launches} (expected "
+          f"{want})", flush=True)
+    check(launches == want and launches["rg_lru_bwd"] == 24
+          and launches["flash_attention_bwd"] == 8,
+          f"launch counts {launches} != {want}")
+    print(f"[main] losses {[round(l, 4) for _, l in hist_a]}; run B (the "
+          f"same {RG_TRAIN_STEPS} steps from seed {SEED}) equals run A bit "
+          f"for bit in all {n_leaves} leaves of params and AdamW state "
+          f"({nbytes / 1e9:.2f} GB); run A's state parked on the host in "
+          f"{park_s:.3f}s, compared in {compare_s:.3f}s; peak device memory "
+          f"{peak_gb:.2f} GB over both runs", flush=True)
+    return params, launches
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator maps growable segments inside the block (phase
+    3b): a recurrentgemma-9b step allocates its 2 x 4096 x 256,000 logits
+    in f32 and their gradient in blocks of 8.4 GB, and with fixed segments
+    the blocks cached by earlier steps left 16.4 GB reserved but unused on
+    an H100, so the third step found no 7.81 GiB block among the card's
+    79.18 GiB (60.0 GiB allocated). The setting covers only segments
+    mapped after it, so the cache the earlier phases left (11.8 GiB of
+    fixed segments in one run) is emptied first; the setting is put back,
+    and the cache emptied again, on the way out."""
+    import torch
+    torch.cuda.empty_cache()
+    print(f"[memory] entering expandable segments: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved",
+          flush=True)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def recurrentgemma_path(device):
+    """Phase 3b, slices 12 and 2: recurrentgemma-9b at full width, one
+    repeat of each segment unit (4 of 38 layers: 3 ``rglru``, 1
+    ``attn_local``; 1.94 G params). It trains (``rg_training``: AdamW on
+    2 x 4096 tokens, past the 2048-token window, the RG-LRU forward and
+    backward kernels and the D = 256 flash forward and backward in every
+    step, run B bit for bit run A); then run A's trained params restart
+    from a params-only checkpoint and serve 3 request batches of
+    3072-token prompts (slice 2: the RG-LRU kernel in every prefill and
+    decode step, tokens equal to those served from the un-saved params);
+    then the train step is timed and profiled. Prints the path's numbers
+    and returns the serving and the training launch counts."""
+    import torch
+    from repro_torch.configs.base import get_config
+
+    # depth cut as the reference's reduced() cuts it
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, segments=tuple(
+        (unit, min(reps, 1)) for unit, reps in full.segments))
+    check(cfg.resolved_head_dim == RG_HEAD_DIM
+          and cfg.window_size == RG_WINDOW and cfg.lru_width == RG_WIDTH
+          and cfg.num_heads == RG_HEADS and cfg.num_kv_heads == 1
+          and cfg.optimizer == "adamw" and cfg.param_dtype == "bfloat16",
+          "recurrentgemma-9b shapes")
+    n = cfg.param_count()
+    print(f"[main] {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} GeGLU, lru_width "
+          f"{cfg.lru_width}, conv {cfg.conv1d_width}, window "
+          f"{cfg.window_size}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}), reduced: segments {full.segments} -> "
+          f"{cfg.segments}, num_layers {full.num_layers} -> "
+          f"{cfg.num_layers}; {n} params; trains with AdamW (moments and "
+          f"grad accumulation {cfg.grad_accum_dtype}, train state "
+          f"{(2 + 2 * 4) * n / 1e9:.2f} GB) on batches of {RG_TRAIN_BATCH} "
+          f"x {RG_TRAIN_SEQ} tokens, {RG_TRAIN_STEPS} steps twice, no "
+          f"checkpoint; then run A's params restart from a params-only "
+          f"checkpoint and serve {RG_REQUESTS} x {RG_BATCH} prompts of "
+          f"{RG_PROMPT} tokens past the window", flush=True)
+    with expandable_segments():
+        params, train_launches = rg_training(cfg, device)
+        host_memory(f"{cfg.name} training")
+        t, launches, (model, params, prompts, n_quant) = serving_restart(
+            cfg, device, batch=RG_BATCH, prompt=RG_PROMPT,
+            gen_tokens=RG_GEN, requests=RG_REQUESTS, dram_capacity=4 << 30,
+            train_state=False, params=params)
+        want = {name: 0 for name in launches}
+        want.update(flash_attention=_layers(cfg, "attn_local") * RG_REQUESTS,
+                    rg_lru=_layers(cfg, "rglru") * RG_GEN * RG_REQUESTS,
+                    quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
+        print(f"[main] launches in save -> restore -> serve: {launches} "
+              f"(expected {want})", flush=True)
+        check(launches == want, f"launch counts {launches} != {want}")
+        serving_numbers(cfg, t, model, params, prompts, RG_GEN)
+        del model, params, prompts
+        training_numbers(cfg, device, RG_TRAIN_BATCH, RG_TRAIN_SEQ)
+    return launches, train_launches
 
 
 def llama4_path(device):
@@ -2316,8 +2657,9 @@ def llama4_path(device):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"flash_attention": (_layers(cfg, "moe_local")
                                 + _layers(cfg, "moe_nope")) * LL_REQUESTS,
-            "flash_attention_bwd": 0, "rg_lru": 0, "mlstm": 0,
-            "quantize_blockwise": n_quant, "dequantize_blockwise": n_quant}
+            "flash_attention_bwd": 0, "rg_lru": 0, "rg_lru_bwd": 0,
+            "mlstm": 0, "quantize_blockwise": n_quant,
+            "dequantize_blockwise": n_quant}
     print(f"[main] launches in save -> restore -> serve: {launches} "
           f"(expected {want})", flush=True)
     check(launches == want and launches["flash_attention"] == 6,
@@ -2694,8 +3036,8 @@ def whisper_path(device):
         per_step={"flash_attention": per_pass,
                   "flash_attention_bwd": per_pass},
         int8=False, timing=False, kill=False, keep_states=True)
-    check(train_launches["flash_attention"] == 96
-          and train_launches["flash_attention_bwd"] == 96,
+    check(train_launches["flash_attention"] == 48
+          and train_launches["flash_attention_bwd"] == 48,
           f"{train_launches}")
     host_memory(f"{cfg.name} training")
 
@@ -2713,7 +3055,7 @@ def whisper_path(device):
     launches = serve_from_runs(cfg, model, (state_a, state_b), prompts,
                                WH_GEN, per_pass, enc_input=enc)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(launches["flash_attention"] == 72, f"{launches}")
+    check(launches["flash_attention"] == 36, f"{launches}")
     del state_a
     prefill_ms, decode_tps = time_serving(cfg, model, state_b.params,
                                           prompts[0], WH_GEN, enc)
@@ -2763,7 +3105,7 @@ def main():
         cfg, device, batch=BATCH, prompt=PROMPT, gen_tokens=GEN,
         requests=REQUESTS, dram_capacity=2 << 30, train_state=True)
     want = {"flash_attention": LAYERS * REQUESTS, "flash_attention_bwd": 0,
-            "rg_lru": 0, "mlstm": 0, "quantize_blockwise": n_quant,
+            "rg_lru": 0, "rg_lru_bwd": 0, "mlstm": 0, "quantize_blockwise": n_quant,
             "dequantize_blockwise": n_quant}
     print(f"[main] launches in save -> restore -> serve: {launches} "
           f"(expected {want})", flush=True)
@@ -2772,38 +3114,9 @@ def main():
     del model, params, prompts
     host_memory("phase 3", phase_end=True)
 
-    # phase 3b: slice 2's path, recurrentgemma-9b from a params-only
-    # checkpoint; depth cut as the reference's reduced() cuts it
-    full = get_config("recurrentgemma-9b")
-    rg_cfg = dataclasses.replace(full, segments=tuple(
-        (unit, min(reps, 1)) for unit, reps in full.segments))
-    check(rg_cfg.resolved_head_dim == RG_HEAD_DIM
-          and rg_cfg.window_size == RG_WINDOW
-          and rg_cfg.lru_width == RG_WIDTH, "recurrentgemma-9b shapes")
-    print(f"[main] {rg_cfg.name} full width (d_model {rg_cfg.d_model}, "
-          f"{rg_cfg.num_heads} heads / {rg_cfg.num_kv_heads} kv, head_dim "
-          f"{rg_cfg.resolved_head_dim}, d_ff {rg_cfg.d_ff} GeGLU, lru_width "
-          f"{rg_cfg.lru_width}, conv {rg_cfg.conv1d_width}, window "
-          f"{rg_cfg.window_size}, vocab {rg_cfg.vocab_size}, "
-          f"{rg_cfg.param_dtype}), reduced: segments {full.segments} -> "
-          f"{rg_cfg.segments}, num_layers {full.num_layers} -> "
-          f"{rg_cfg.num_layers}; {rg_cfg.param_count()} params; prompt "
-          f"{RG_PROMPT} past the window", flush=True)
-    rg_t, rg_launches, (rg_model, rg_params, rg_prompts, rg_quant) = \
-        serving_restart(rg_cfg, device, batch=RG_BATCH, prompt=RG_PROMPT,
-                        gen_tokens=RG_GEN, requests=RG_REQUESTS,
-                        dram_capacity=4 << 30, train_state=False)
-    rg_want = {"flash_attention": _layers(rg_cfg, "attn_local")
-               * RG_REQUESTS, "flash_attention_bwd": 0,
-               "rg_lru": _layers(rg_cfg, "rglru") * RG_GEN * RG_REQUESTS,
-               "mlstm": 0, "quantize_blockwise": rg_quant,
-               "dequantize_blockwise": rg_quant}
-    print(f"[main] launches in save -> restore -> serve: {rg_launches} "
-          f"(expected {rg_want})", flush=True)
-    check(rg_launches == rg_want, f"launch counts {rg_launches} != "
-          f"{rg_want}")
-    serving_numbers(rg_cfg, rg_t, rg_model, rg_params, rg_prompts, RG_GEN)
-    del rg_model, rg_params, rg_prompts
+    # phase 3b: slices 12 and 2, recurrentgemma-9b trains, then restarts
+    # from a params-only checkpoint of its trained params and serves
+    rg_launches, rg_train_launches = recurrentgemma_path(device)
     host_memory("phase 3b", phase_end=True)
 
     # phase 3c: slice 3's path, xlstm-350m training through a server kill;
@@ -2829,13 +3142,14 @@ def main():
     host_memory("phase 3c", phase_end=True)
 
     # phase 3d: slice 4's path, starcoder2-3b training through a server
-    # kill; depth cut to LAYERS as in phase 3
+    # kill; depth cut to SC_LAYERS
+    cfg = dataclasses.replace(cfg, segments=((("attn",), SC_LAYERS),))
     n = cfg.param_count()
     ckpt = 2 * n + 2 * 4 * n          # bf16 params, f32 AdamW m and v
     print(f"[main] {cfg.name} training, full width as in phase 3, params "
           f"{cfg.param_dtype}, compute {cfg.compute_dtype}, grad "
           f"accumulation and AdamW moments {cfg.grad_accum_dtype}; "
-          f"reduced: num_layers 30 -> {LAYERS}; {n} params; batch "
+          f"reduced: num_layers 30 -> {SC_LAYERS}; {n} params; batch "
           f"{SC_BATCH} x {SC_SEQ} tokens, {SC_STEPS} steps; unquantized "
           f"checkpoint {ckpt / 1e9:.3f} GB, {2 * ckpt / 4 / 2**30:.2f} GiB "
           f"a server at replication 2 over 4 servers of "
@@ -2843,7 +3157,8 @@ def main():
     sc_launches, _ = training_path(
         cfg, device, batch=SC_BATCH, seq=SC_SEQ, steps=SC_STEPS,
         dram_capacity=SC_DRAM,
-        per_step={"flash_attention": LAYERS, "flash_attention_bwd": LAYERS})
+        per_step={"flash_attention": SC_LAYERS,
+                  "flash_attention_bwd": SC_LAYERS})
     host_memory("phase 3d", phase_end=True)
 
     # phase 3e: slice 5's path, deepseek-coder-33b training (Adafactor)
@@ -2897,7 +3212,7 @@ def main():
                         dram_capacity=H2O_DRAM, train_state=False)
     h2o_want = {"flash_attention": _layers(h2o_cfg, "attn_local")
                 * H2O_REQUESTS, "flash_attention_bwd": 0, "rg_lru": 0,
-                "mlstm": 0, "quantize_blockwise": h2o_quant,
+                "rg_lru_bwd": 0, "mlstm": 0, "quantize_blockwise": h2o_quant,
                 "dequantize_blockwise": h2o_quant}
     print(f"[main] launches in save -> restore -> serve: {h2o_launches} "
           f"(expected {h2o_want})", flush=True)
@@ -2923,6 +3238,7 @@ def main():
     host_step("the kernels line")
     rows = kernel_line(gen, {"starcoder2-3b": launches,
                              "recurrentgemma-9b": rg_launches,
+                             "recurrentgemma-9b train": rg_train_launches,
                              "xlstm-350m": xl_launches,
                              "starcoder2-3b train": sc_launches,
                              "deepseek-coder-33b": ds_launches,

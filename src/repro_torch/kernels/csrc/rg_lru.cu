@@ -57,6 +57,31 @@
 // Rounding: each step is __fmul_rn then __fadd_rn, never a contracted FMA,
 // in time order per channel, because the plain PyTorch version rounds the
 // product before the add; both kernels are then bit-identical to it.
+//
+// Under autograd both forward kernels also write the f32 carry h32 (B, S,
+// D) when given a pointer to it (bf16 inputs; in f32, h is the carry): the
+// backward's da_t = g_t h_{t-1} needs h in f32, as the reference's VJP
+// differentiates its f32 scan, and the bf16 h would put da off by up to
+// 2^-8 relative. Without the pointer (prefill, decode) each kernel runs an
+// instance compiled without the carry (CARRY = false), the code it ran
+// before the backward came.
+//
+// The backward, rg_lru_bwd_kernel: the VJP of the scan by a reverse one,
+// g_t = dh_t + a_{t+1} g_{t+1} (g_{S-1} = dh_{S-1} + dh_last), dgx_t = g_t,
+// da_t = g_t h_{t-1} (h_{-1} = h0, or 0), dh0 = a_0 g_0. One thread per
+// (b, channel) walks S from the end with g in a register, 64 channels a
+// block, the next UB = 16 steps of a, dh and h32 loaded into registers
+// ahead of the chain (all of a chunk's loads in flight at once, see
+// load_bwd_chunk); every product and sum is rounded on its own
+// (__fmul_rn, __fadd_rn), in reverse time order per channel, so it is bit
+// for bit the plain version (kernels/ref.py::rg_lru_bwd) and bit-identical
+// across launches. It moves 12 bytes an element in bf16 (a, dh read, h32
+// read in f32, da and dgx written): at recurrentgemma-9b's training shape
+// (2, 4096, 4096) 403 MB, 0.120 ms at 3.35 TB/s. Its 8,192 chains keep
+// about 1 MB of loads in flight, a third of what the card needs at full
+// rate: 0.2995 ms on an H100 (tune_rg_lru --bwd; 32 to 256 channels a
+// block and 8 to 32 steps ahead were timed, 64 x 16 was among the
+// fastest). The forward's cp.async ring run backwards is the next step.
 #include <atomic>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,6 +98,9 @@ constexpr int U = 8;  // timesteps held in registers per chunk
 constexpr int ROW_BYTES = 128;
 constexpr int TILE_S = 32;  // timesteps a tile
 constexpr int STAGES = 3;   // tiles in the ring
+// the backward kernel
+constexpr int BWD_THREADS = 64;
+constexpr int UB = 16;  // timesteps held in registers per chunk
 constexpr int MAX_DEVICES = 64;
 
 enum Kernel { KERNEL_STEP = 0, KERNEL_RING = 1 };
@@ -110,11 +138,13 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ a,
   }
 }
 
-template <typename T>
+// CARRY: also write the f32 carry to h32, as the ring kernel's CARRY
+template <typename T, bool CARRY>
 __global__ void __launch_bounds__(STEP_THREADS)
 rg_lru_step_kernel(const T* __restrict__ a, const T* __restrict__ gx,
                    const T* __restrict__ h0, T* __restrict__ h,
-                   T* __restrict__ h_last, int S, int D) {
+                   T* __restrict__ h_last, float* __restrict__ h32, int S,
+                   int D) {
   const int c = blockIdx.x * STEP_THREADS + threadIdx.x;
   const int b = blockIdx.y;
   if (c >= D) return;
@@ -137,6 +167,7 @@ rg_lru_step_kernel(const T* __restrict__ a, const T* __restrict__ gx,
       if (t < S) {
         carry = step(ac[u], carry, gc[u]);
         store(&h[base + (size_t)t * D], carry);
+        if (CARRY) h32[base + (size_t)t * D] = carry;
       }
     }
   }
@@ -214,11 +245,14 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ a,
   }
 }
 
-template <typename T, bool ALIGNED, int TS, int ST>
+// CARRY: also write the f32 carry to h32 (under autograd); the instance
+// without it is the serving path's, with no store or test of h32 a step
+template <typename T, bool ALIGNED, int TS, int ST, bool CARRY>
 __global__ void __launch_bounds__(Ring<T, ALIGNED, TS, ST>::DC)
 rg_lru_ring_kernel(const T* __restrict__ a, const T* __restrict__ gx,
                    const T* __restrict__ h0, T* __restrict__ h,
-                   T* __restrict__ h_last, int S, int D) {
+                   T* __restrict__ h_last, float* __restrict__ h32, int S,
+                   int D) {
   using R = Ring<T, ALIGNED, TS, ST>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);  // (ST, 2, TS, PITCH)
@@ -242,6 +276,7 @@ rg_lru_ring_kernel(const T* __restrict__ a, const T* __restrict__ gx,
   float carry = (live && h0) ? to_f32(h0[(size_t)b * D + c0 + threadIdx.x])
                              : 0.f;
   T* hp = h + first + threadIdx.x;  // h[b, t, c], t = 0
+  float* cp = CARRY ? h32 + first + threadIdx.x : nullptr;
   // row t's shift in its window; each row moves it by D mod VEC
   int sa = shift_of<ALIGNED>(a + first), sg = shift_of<ALIGNED>(gx + first);
   const int dv = D % R::VEC;
@@ -263,6 +298,10 @@ rg_lru_ring_kernel(const T* __restrict__ a, const T* __restrict__ gx,
                    to_f32(gs[r * R::PITCH + sg]));
       store(hp, carry);
       hp += D;
+      if (CARRY) {
+        *cp = carry;
+        cp += D;
+      }
       if (!ALIGNED) {
         sa = (sa + dv) & (R::VEC - 1);
         sg = (sg + dv) & (R::VEC - 1);
@@ -278,22 +317,107 @@ rg_lru_ring_kernel(const T* __restrict__ a, const T* __restrict__ gx,
   if (live) store(&h_last[(size_t)b * D + c0 + threadIdx.x], carry);
 }
 
+// -------------------------------------------------------- backward kernel
+
+// steps t = t_hi, t_hi - 1, .., t_hi - UN + 1 of the reverse walk, as
+// loaded: a_t and dh_t in their dtype and h_{t-1}, the f32 carry a step
+// back. Every load is made, none behind a branch, and nothing is converted
+// here: a step past 0 (the last chunk of a ragged S) or the carry before
+// step 0 reads step 0 again, and the walk does not use it. So the chunk's
+// loads all leave before the first of them is waited for (converting a
+// load where it is made, or branching around it, waits for each in turn:
+// a memory latency a step).
+template <typename T, int UN>
+__device__ __forceinline__ void load_bwd_chunk(
+    const T* __restrict__ a, const float* __restrict__ h32,
+    const T* __restrict__ dh, size_t base, int t_hi, int D, T (&ar)[UN],
+    float (&hr)[UN], T (&dr)[UN]) {
+#pragma unroll
+  for (int u = 0; u < UN; ++u) {
+    const int t = max(t_hi - u, 0);
+    ar[u] = a[base + (size_t)t * D];
+    dr[u] = dh[base + (size_t)t * D];
+    hr[u] = h32[base + (size_t)max(t - 1, 0) * D];
+  }
+}
+
+// THREADS channels a block, UN steps in registers ahead of the chain (the
+// compiled instance: BWD_THREADS, UB; tune_rg_lru --bwd times others)
+template <typename T, int THREADS, int UN>
+__global__ void __launch_bounds__(THREADS)
+rg_lru_bwd_kernel(const T* __restrict__ a, const float* __restrict__ h32,
+                  const T* __restrict__ h0, const T* __restrict__ dh,
+                  const T* __restrict__ dh_last, T* __restrict__ da,
+                  T* __restrict__ dgx, T* __restrict__ dh0, int S, int D) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  const int b = blockIdx.y;
+  if (c >= D) return;
+  const size_t base = (size_t)b * S * D + c;
+  const size_t row = (size_t)b * D + c;
+  const float h_init = h0 ? to_f32(h0[row]) : 0.f;
+  // without dh the loads read a in its place, and the walk adds zeros
+  const bool has_dh = dh != nullptr;
+  const T* __restrict__ dh_src = has_dh ? dh : a;
+  // a_{t+1} g_{t+1}, what step t adds to dh_t; dh_last at t = S - 1
+  float g_in = dh_last ? to_f32(dh_last[row]) : 0.f;
+  T an[UN], dn[UN];
+  float hn[UN];
+  load_bwd_chunk<T, UN>(a, h32, dh_src, base, S - 1, D, an, hn, dn);
+  for (int t0 = S - 1; t0 >= 0; t0 -= UN) {
+    T ac[UN], dc[UN];
+    float hc[UN];
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      ac[u] = an[u];
+      hc[u] = hn[u];
+      dc[u] = dn[u];
+    }
+    if (t0 - UN >= 0)
+      load_bwd_chunk<T, UN>(a, h32, dh_src, base, t0 - UN, D, an, hn, dn);
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      const int t = t0 - u;
+      if (t >= 0) {
+        const float g =
+            __fadd_rn(has_dh ? to_f32(dc[u]) : 0.f, g_in);
+        const size_t i = base + (size_t)t * D;
+        store(&dgx[i], g);
+        store(&da[i], __fmul_rn(g, t > 0 ? hc[u] : h_init));
+        g_in = __fmul_rn(to_f32(ac[u]), g);
+      }
+    }
+  }
+  if (dh0) store(&dh0[row], g_in);
+}
+
 // ------------------------------------------------------------------ launch
 
-template <typename T>
-int launch_step(const void* a, const void* gx, const void* h0, void* h,
-                void* h_last, int B, int S, int D, cudaStream_t stream) {
+template <typename T, bool CARRY>
+int launch_step_instance(const void* a, const void* gx, const void* h0,
+                         void* h, void* h_last, void* h32, int B, int S,
+                         int D, cudaStream_t stream) {
   dim3 grid((D + STEP_THREADS - 1) / STEP_THREADS, B);
-  rg_lru_step_kernel<T><<<grid, STEP_THREADS, 0, stream>>>(
+  rg_lru_step_kernel<T, CARRY><<<grid, STEP_THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(gx),
       static_cast<const T*>(h0), static_cast<T*>(h), static_cast<T*>(h_last),
-      S, D);
+      static_cast<float*>(h32), S, D);
   return (int)cudaGetLastError();
+}
+
+// the instance with the carry when h32 is given
+template <typename T>
+int launch_step(const void* a, const void* gx, const void* h0, void* h,
+                void* h_last, void* h32, int B, int S, int D,
+                cudaStream_t stream) {
+  return h32 ? launch_step_instance<T, true>(a, gx, h0, h, h_last, h32, B,
+                                             S, D, stream)
+             : launch_step_instance<T, false>(a, gx, h0, h, h_last, h32, B,
+                                              S, D, stream);
 }
 
 // the ring's dynamic shared memory may pass 48 KB; the attribute is set once
 // a device, not at every launch
-template <typename T, bool ALIGNED, int TS, int ST>
+template <typename T, bool ALIGNED, int TS, int ST, bool CARRY>
 cudaError_t allow_smem() {
   static std::atomic<bool> done[MAX_DEVICES];
   int dev = 0;
@@ -301,7 +425,7 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!done[dev].load()) {
-    err = cudaFuncSetAttribute(rg_lru_ring_kernel<T, ALIGNED, TS, ST>,
+    err = cudaFuncSetAttribute(rg_lru_ring_kernel<T, ALIGNED, TS, ST, CARRY>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Ring<T, ALIGNED, TS, ST>::SMEM);
     if (err != cudaSuccess) return err;
@@ -310,24 +434,37 @@ cudaError_t allow_smem() {
   return cudaSuccess;
 }
 
-template <typename T, bool ALIGNED, int TS, int ST>
-int launch_ring(const void* a, const void* gx, const void* h0, void* h,
-                void* h_last, int B, int S, int D, cudaStream_t stream) {
+template <typename T, bool ALIGNED, int TS, int ST, bool CARRY>
+int launch_ring_instance(const void* a, const void* gx, const void* h0,
+                         void* h, void* h_last, void* h32, int B, int S,
+                         int D, cudaStream_t stream) {
   using R = Ring<T, ALIGNED, TS, ST>;
-  cudaError_t err = allow_smem<T, ALIGNED, TS, ST>();
+  cudaError_t err = allow_smem<T, ALIGNED, TS, ST, CARRY>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((D + R::DC - 1) / R::DC, B);
-  rg_lru_ring_kernel<T, ALIGNED, TS, ST><<<grid, R::DC, R::SMEM, stream>>>(
+  rg_lru_ring_kernel<T, ALIGNED, TS, ST, CARRY>
+      <<<grid, R::DC, R::SMEM, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(gx),
       static_cast<const T*>(h0), static_cast<T*>(h), static_cast<T*>(h_last),
-      S, D);
+      static_cast<float*>(h32), S, D);
   return (int)cudaGetLastError();
+}
+
+// the instance with the carry when h32 is given
+template <typename T, bool ALIGNED, int TS, int ST>
+int launch_ring(const void* a, const void* gx, const void* h0, void* h,
+                void* h_last, void* h32, int B, int S, int D,
+                cudaStream_t stream) {
+  return h32 ? launch_ring_instance<T, ALIGNED, TS, ST, true>(
+                   a, gx, h0, h, h_last, h32, B, S, D, stream)
+             : launch_ring_instance<T, ALIGNED, TS, ST, false>(
+                   a, gx, h0, h, h_last, h32, B, S, D, stream);
 }
 
 // the plan against this dtype's compiled instances, then the launch
 template <typename T>
 int plan_and_launch(const void* a, const void* gx, const void* h0, void* h,
-                    void* h_last, int B, int S, int D, int kernel,
+                    void* h_last, void* h32, int B, int S, int D, int kernel,
                     int tile_s, int tile_d, int stages, int aligned,
                     int grid_x, int smem, cudaStream_t stream) {
   if (tile_d <= 0 || grid_x != (D + tile_d - 1) / tile_d)
@@ -335,7 +472,7 @@ int plan_and_launch(const void* a, const void* gx, const void* h0, void* h,
   if (kernel == KERNEL_STEP) {
     if (tile_s != U || tile_d != STEP_THREADS || stages != 0 || smem != 0)
       return (int)cudaErrorInvalidValue;
-    return launch_step<T>(a, gx, h0, h, h_last, B, S, D, stream);
+    return launch_step<T>(a, gx, h0, h, h_last, h32, B, S, D, stream);
   }
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(gx);
@@ -347,24 +484,39 @@ int plan_and_launch(const void* a, const void* gx, const void* h0, void* h,
     if (smem != Ring<T, true, TILE_S, STAGES>::SMEM ||
         (size_t)D * sizeof(T) % 16 != 0 || ptrs % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    return launch_ring<T, true, TILE_S, STAGES>(a, gx, h0, h, h_last, B, S,
-                                                D, stream);
+    return launch_ring<T, true, TILE_S, STAGES>(a, gx, h0, h, h_last, h32, B,
+                                                S, D, stream);
   }
   if (smem != Ring<T, false, TILE_S, STAGES>::SMEM)
     return (int)cudaErrorInvalidValue;
-  return launch_ring<T, false, TILE_S, STAGES>(a, gx, h0, h, h_last, B, S, D,
-                                               stream);
+  return launch_ring<T, false, TILE_S, STAGES>(a, gx, h0, h, h_last, h32, B,
+                                               S, D, stream);
+}
+
+template <typename T, int THREADS = BWD_THREADS, int UN = UB>
+int launch_bwd(const void* a, const void* h32, const void* h0, const void* dh,
+               const void* dh_last, void* da, void* dgx, void* dh0, int B,
+               int S, int D, cudaStream_t stream) {
+  dim3 grid((D + THREADS - 1) / THREADS, B);
+  rg_lru_bwd_kernel<T, THREADS, UN><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const float*>(h32),
+      static_cast<const T*>(h0), static_cast<const T*>(dh),
+      static_cast<const T*>(dh_last), static_cast<T*>(da),
+      static_cast<T*>(dgx), static_cast<T*>(dh0), S, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a, gx, h: (B, S, D); h0 (may be null: zeros), h_last: (B, D); all
-// contiguous, dtype 0 = float32, 1 = bfloat16. The launch plan (kernel 0 =
+// a, gx, h: (B, S, D); h0 (may be null: zeros), h_last: (B, D); h32 (may be
+// null: not written): the f32 carry (B, S, D); all contiguous, dtype 0 =
+// float32, 1 = bfloat16. The launch plan (kernel 0 =
 // step, 1 = ring; tile_s, tile_d, stages, aligned, grid_x, smem) comes from
 // kernels/rg_lru.py::launch_plan and must match a compiled instance.
 // Returns a cudaError_t (0 = launched).
 extern "C" int rg_lru_fwd(const void* a, const void* gx, const void* h0,
-                          void* h, void* h_last, int B, int S, int D,
+                          void* h, void* h_last, void* h32, int B, int S,
+                          int D,
                           int dtype, int kernel, int tile_s, int tile_d,
                           int stages, int aligned, int grid_x, int smem,
                           void* stream) {
@@ -372,12 +524,37 @@ extern "C" int rg_lru_fwd(const void* a, const void* gx, const void* h0,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return plan_and_launch<float>(a, gx, h0, h, h_last, B, S, D, kernel,
+    return plan_and_launch<float>(a, gx, h0, h, h_last, h32, B, S, D, kernel,
                                   tile_s, tile_d, stages, aligned, grid_x,
                                   smem, s);
   if (dtype == 1)
-    return plan_and_launch<bf16>(a, gx, h0, h, h_last, B, S, D, kernel,
+    return plan_and_launch<bf16>(a, gx, h0, h, h_last, h32, B, S, D, kernel,
                                  tile_s, tile_d, stages, aligned, grid_x,
                                  smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: a (B, S, D), h32 the forward's f32 carry (B, S, D); h0
+// (null: zeros), dh (null: zeros), dh_last (null: zeros) -> da, dgx (B, S,
+// D) and dh0 (B, D; null: not written), all in a's dtype (0 = float32, 1 =
+// bfloat16) but h32, contiguous. The plan (tile_d channels a block, unroll
+// steps in registers, grid_x blocks over D) comes from
+// kernels/rg_lru.py::bwd_launch_plan and must match the compiled instance.
+// Returns a cudaError_t (0 = launched).
+extern "C" int rg_lru_bwd(const void* a, const void* h32, const void* h0,
+                          const void* dh, const void* dh_last, void* da,
+                          void* dgx, void* dh0, int B, int S, int D,
+                          int dtype, int tile_d, int unroll, int grid_x,
+                          void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0 || B > 65535 || tile_d != BWD_THREADS ||
+      unroll != UB || grid_x != (D + BWD_THREADS - 1) / BWD_THREADS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(a, h32, h0, dh, dh_last, da, dgx, dh0, B, S, D,
+                             s);
+  if (dtype == 1)
+    return launch_bwd<bf16>(a, h32, h0, dh, dh_last, da, dgx, dh0, B, S, D,
+                            s);
   return (int)cudaErrorInvalidValue;
 }

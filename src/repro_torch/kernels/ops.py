@@ -20,7 +20,10 @@ int8 quantize / dequantize) and for the flash backward of its custom VJP
 Function whose forward saves (q, k, v, o, m, l) and whose backward
 recomputes the probabilities chunk by chunk (the kernels on the card,
 ``flash_bwd_chunked`` on the CPU), so training never keeps a chunk's
-probabilities for autograd.
+probabilities for autograd. Likewise the RG-LRU scan, which the reference
+differentiates by autodiff of ``_rg_lru_assoc``: its Function saves (a,
+the f32 carry, h0) and its backward is a reverse scan (the kernel on the
+card, ``ref.rg_lru_bwd`` on the CPU).
 """
 from __future__ import annotations
 
@@ -182,10 +185,35 @@ def flash_bwd_chunked(q, k, v, o, m, l, do, *, causal=True, window=0,
 
 
 def rg_lru(a, gx, h0=None):
-    """h_t = a_t * h_{t-1} + gx_t. a/gx: (B,S,D) -> (h, h_last)."""
+    """h_t = a_t * h_{t-1} + gx_t. a/gx: (B,S,D) -> (h, h_last);
+    differentiable in a, gx and h0."""
     if a.is_cuda:
         return _rg_lru.rg_lru(a, gx, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, gx, h0)):
+        return _PlainRGLRUFunction.apply(a, gx, h0)
     return ref.rg_lru(a, gx, h0)
+
+
+class _PlainRGLRUFunction(torch.autograd.Function):
+    """The CPU counterpart of the kernels' Function: forward ``ref.rg_lru``
+    with its f32 carry, backward ``ref.rg_lru_bwd``."""
+
+    @staticmethod
+    def forward(ctx, a, gx, h0):
+        ctx.set_materialize_grads(False)
+        h, h_last, h32 = ref.rg_lru(a, gx, h0, return_carry=True)
+        ctx.save_for_backward(a, h32, h0)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        if dh is None and dh_last is None:
+            return None, None, None
+        a, h32, h0 = ctx.saved_tensors
+        grads = ref.rg_lru_bwd(a, h32, dh, dh_last, h0)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 # ---------------------------------------------------------------------------

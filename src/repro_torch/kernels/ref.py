@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the ported kernels. Small, obviously correct, f32.
 
 Counterparts of ``repro/kernels/ref.py``: ``flash_attention`` (naive
-full-matrix attention), the RG-LRU scan ``rg_lru`` (sequential, f32 carry),
+full-matrix attention), the RG-LRU scan ``rg_lru`` (sequential, f32 carry)
+and its backward ``rg_lru_bwd`` (the reverse scan),
 the mLSTM cell ``mlstm`` (sequential, log-space stabilized) and the
 blockwise int8 ``quantize_blockwise`` / ``dequantize_blockwise``.
 ``chip_smoke.py`` holds the CUDA kernels against the plain versions beside
@@ -45,11 +46,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     return o.to(q.dtype)
 
 
-def rg_lru(a, gx, h0=None):
+def rg_lru(a, gx, h0=None, return_carry=False):
     """Linear recurrence h_t = a_t * h_{t-1} + gx_t, a loop over t in f32.
 
     a, gx: (B, S, D) (already gated/scaled inputs); h0: (B, D) or None.
-    Returns (h_seq (B,S,D), h_last (B,D)) in a's dtype. Each step rounds the
+    Returns (h_seq (B,S,D), h_last (B,D)) in a's dtype, and with
+    ``return_carry`` the f32 carry (B,S,D) too. Each step rounds the
     product before the add (two torch ops, never a fused multiply-add), as
     the CUDA kernel does, so the two agree bit for bit on the card.
     """
@@ -61,7 +63,37 @@ def rg_lru(a, gx, h0=None):
     for t in range(s):
         h = af[:, t] * h + gf[:, t]
         hs.append(h)
-    return torch.stack(hs, dim=1).to(a.dtype), h.to(a.dtype)
+    carry = torch.stack(hs, dim=1)
+    if return_carry:
+        return carry.to(a.dtype), h.to(a.dtype), carry
+    return carry.to(a.dtype), h.to(a.dtype)
+
+
+def rg_lru_bwd(a, h32, dh, dh_last=None, h0=None):
+    """The VJP of ``rg_lru`` by a reverse loop over t in f32.
+
+    a: (B, S, D); h32: the forward's f32 carry (B, S, D); dh: (B, S, D) and
+    dh_last: (B, D), the gradients of h and h_last (None: zero); h0: (B, D)
+    or None. From g_{S-1} = dh_{S-1} + dh_last, in reverse time order:
+    dgx_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0, or 0), then
+    g_{t-1} = dh_{t-1} + a_t g_t, each product rounded before the add (as
+    the CUDA kernel does), and dh0 = a_0 g_0. Returns (da, dgx, dh0) in a's
+    dtype, dh0 None without h0.
+    """
+    af = a.float()
+    b, s, d = a.shape
+    zero = torch.zeros((b, d), dtype=torch.float32, device=a.device)
+    g_in = zero if dh_last is None else dh_last.float()
+    h_init = zero if h0 is None else h0.float()
+    das, dgxs = [], []
+    for t in range(s - 1, -1, -1):
+        g = g_in if dh is None else dh[:, t].float() + g_in
+        dgxs.append(g)
+        das.append(g * (h32[:, t - 1] if t else h_init))
+        g_in = af[:, t] * g
+    da = torch.stack(das[::-1], dim=1).to(a.dtype)
+    dgx = torch.stack(dgxs[::-1], dim=1).to(a.dtype)
+    return da, dgx, None if h0 is None else g_in.to(a.dtype)
 
 
 def mlstm(q, k, v, log_f, log_i, c0=None, n0=None, m0=None):

@@ -1,6 +1,7 @@
-"""Time the RG-LRU ring kernel's tile choices on one CUDA card.
+"""Time the RG-LRU kernels' tile choices on one CUDA card.
 
     PYTHONPATH=src python -m repro_torch.kernels.tune_rg_lru
+    PYTHONPATH=src python -m repro_torch.kernels.tune_rg_lru --bwd
 
 ``csrc/rg_lru.cu`` compiles its ring kernel for one time tile and ring
 depth (``TILE_S``, ``STAGES``). This script builds the same source once more
@@ -13,9 +14,16 @@ orders. Then the wrapper's own kernels: at that shape, at D = 4100 (bf16
 rows off 16-byte boundaries, so shifted rows), and the step kernel launched
 at both. The card's name and power limit come first. It needs nvcc and a
 card, and stops at the first mismatch.
+
+``--bwd`` does the same for the backward kernel (``BWD_THREADS`` channels a
+block, ``UB`` steps in registers): other (threads, unroll) pairs, each held
+bit for bit against the plain backward at recurrentgemma-9b's training
+shape (B=2, S=4096, D=4096, bf16, from the plain forward's f32 carry),
+then the wrapper's backward and the forward with its carry.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -27,6 +35,9 @@ from repro_torch.kernels import build, ref, rg_lru
 PAIRS = ((16, 4), (16, 6), (16, 8), (32, 2), (32, 3), (32, 4), (32, 6),
          (64, 2), (64, 3), (64, 4), (64, 6), (128, 2), (128, 3))
 SHAPE = (4, 3072, 4096)
+BWD_PAIRS = ((32, 16), (64, 8), (64, 16), (64, 32), (128, 8), (128, 16),
+             (128, 32), (256, 16))
+TRAIN_SHAPE = (2, 4096, 4096)
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 
 
@@ -34,9 +45,9 @@ def _source() -> str:
     cases = "\n".join(
         f"  if (ts == {t} && st == {s})\n"
         f"    return aligned ? launch_ring<bf16, true, {t}, {s}>("
-        f"a, gx, h0, h, hl, B, S, D, stream)\n"
+        f"a, gx, h0, h, hl, nullptr, B, S, D, stream)\n"
         f"                   : launch_ring<bf16, false, {t}, {s}>("
-        f"a, gx, h0, h, hl, B, S, D, stream);" for t, s in PAIRS)
+        f"a, gx, h0, h, hl, nullptr, B, S, D, stream);" for t, s in PAIRS)
     return (f'#include "{build.CSRC / "rg_lru.cu"}"\n\n'
             'extern "C" int tile_fwd(const void* a, const void* gx, '
             'const void* h0, void* h, void* hl, int B, int S, int D, '
@@ -45,20 +56,39 @@ def _source() -> str:
             f'{cases}\n  return -1;\n}}\n')
 
 
-def _tile_kernels():
+def _bwd_source() -> str:
+    cases = "\n".join(
+        f"  if (th == {t} && un == {u})\n"
+        f"    return launch_bwd<bf16, {t}, {u}>(a, h32, nullptr, dh, "
+        f"nullptr, da, dgx, nullptr, B, S, D, stream);"
+        for t, u in BWD_PAIRS)
+    return (f'#include "{build.CSRC / "rg_lru.cu"}"\n\n'
+            'extern "C" int tile_bwd(const void* a, const void* h32, '
+            'const void* dh, void* da, void* dgx, int B, int S, int D, '
+            'int th, int un, void* s) {\n'
+            '  cudaStream_t stream = static_cast<cudaStream_t>(s);\n'
+            f'{cases}\n  return -1;\n}}\n')
+
+
+def _compile(name, source, symbol, argtypes):
     out = build.BUILD_DIR / "tune_rg_lru"
     out.mkdir(parents=True, exist_ok=True)
-    src, lib = out / "tiles.cu", out / "libtiles.so"
-    src.write_text(_source())
+    src, lib = out / f"{name}.cu", out / f"lib{name}.so"
+    src.write_text(source)
     res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                           str(src)], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
-    fn = ctypes.CDLL(str(lib)).tile_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _tile_kernels():
+    return _compile("tiles", _source(), "tile_fwd",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p])
 
 
 def _events_ms(fn, iters=50, warmup=3) -> float:
@@ -102,8 +132,7 @@ def _report(name, launch, outputs, want, bound_ms):
         x.zero_()
     launch()
     torch.cuda.synchronize()
-    h, h_last = outputs()
-    if not (torch.equal(h, want[0]) and torch.equal(h_last, want[1])):
+    if not all(torch.equal(x, w) for x, w in zip(outputs(), want)):
         sys.exit(f"tune_rg_lru: {name} differs from the plain version")
     dev = _device_ms(launch)
     print(f"{name}: {_events_ms(launch):.5f} ms by events, {dev:.5f} ms "
@@ -120,14 +149,60 @@ def _step_launch(a, gx, h0, h, h_last):
 
     def launch():
         err = fn(a.data_ptr(), gx.data_ptr(), h0.data_ptr(), h.data_ptr(),
-                 h_last.data_ptr(), b, s, d, 1, 0, plan.tile_s, plan.tile_d,
+                 h_last.data_ptr(), None, b, s, d, 1, 0, plan.tile_s,
+                 plan.tile_d,
                  plan.stages, 1, plan.grid[0], plan.smem,
                  build.stream_ptr(a))
         build.check(err, "rg_lru_fwd (step)")
     return launch
 
 
-def main():
+def tune_bwd(gen):
+    """The backward's (threads, unroll) pairs at TRAIN_SHAPE, twice in
+    opposite orders, then the wrapper's backward and the forward with its
+    carry, against their bytes bounds (the backward reads a and dh in bf16
+    and the carry in f32 and writes da and dgx: 12 bytes an element; the
+    forward reads a and gx and writes h and the carry: 10)."""
+    tiles = _compile("bwd", _bwd_source(), "tile_bwd",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    b, s, d = TRAIN_SHAPE
+    a, gx, _ = _inputs(b, s, d, gen)
+    dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
+    want_fwd = ref.rg_lru(a, gx, None, return_carry=True)
+    h32 = want_fwd[2]
+    want = ref.rg_lru_bwd(a, h32, dh)[:2]
+    n = a.numel()
+    bound_ms = 12 * n / HBM_BPS * 1e3
+    da, dgx = torch.empty_like(a), torch.empty_like(a)
+    print(f"(B, S, D) = {TRAIN_SHAPE} bf16, backward: the wrapper's plan "
+          f"{rg_lru.bwd_launch_plan(b, d)}", flush=True)
+    for th, un in BWD_PAIRS + BWD_PAIRS[::-1]:
+        def launch(th=th, un=un):
+            err = tiles(a.data_ptr(), h32.data_ptr(), dh.data_ptr(),
+                        da.data_ptr(), dgx.data_ptr(), b, s, d, th, un,
+                        build.stream_ptr(a))
+            build.check(err, "tile_bwd")
+        _report(f"  backward, {th} channels a block, {un} steps ahead",
+                launch, lambda: (da, dgx), want, bound_ms)
+    last = {"out": (da, dgx)}
+
+    def wrapper():
+        last["out"] = rg_lru.rg_lru_bwd(a, h32, dh)[:2]
+    _report("  the wrapper's backward", wrapper, lambda: last["out"], want,
+            bound_ms)
+
+    def forward():
+        last["fwd"] = rg_lru.rg_lru(a, gx, None, return_carry=True)
+    last["fwd"] = tuple(torch.empty_like(x) for x in want_fwd)
+    _report("  the forward with its carry", forward, lambda: last["fwd"],
+            want_fwd, (10 * n + 2 * b * d) / HBM_BPS * 1e3)
+
+
+def main(argv=None):
+    args = argparse.ArgumentParser()
+    args.add_argument("--bwd", action="store_true")
+    args = args.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tune_rg_lru: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -137,6 +212,9 @@ def main():
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if args.bwd:
+        tune_bwd(gen)
+        return
     tiles = _tile_kernels()
     for b, s, d in (SHAPE, SHAPE[:2] + (4100,)):
         a, gx, h0 = _inputs(b, s, d, gen)

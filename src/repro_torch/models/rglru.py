@@ -7,7 +7,10 @@ recurrence] -> output projection. The recurrence is
   log_a_t = -c * softplus(Lambda) * r_t          (c = 8)
   h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t * xi_t)
 run by ``kernels.ops.rg_lru`` (the CUDA kernel on the card, the sequential
-plain version on the CPU).
+plain version on the CPU). Under autograd (training) the scan's backward is
+a reverse scan: the CUDA kernel ``rg_lru_bwd`` on the card, fed the f32
+carry the forward kernel then also writes, and ``ref.rg_lru_bwd`` on the
+CPU; the gates' gradients are autograd's.
 
 Unlike the reference, whose caches are immutable arrays, the decode path
 writes the new state into the cache tensors it is given.
