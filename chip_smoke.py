@@ -517,10 +517,11 @@ WH_TRAIN_CROSS_CASE = (WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_FRAMES) \
     + WH_ENC_CASE[3:]
 WH_TRAIN_SELF_CASE = (WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_SEQ) \
     + WH_SELF_CASE[3:]
+WH_TRAIN_CASES = (WH_TRAIN_ENC_CASE, WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE)
 # the cases held per element by ``_p_rounding_atol``
 P_ROUND_CASES = (LL_PREFILL_CASE, LL_NOPE_CASE, DS3_PREFILL_CASE, WH_ENC_CASE,
                  WH_CROSS_CASE, WH_SELF_CASE, WH_TRAIN_ENC_CASE,
-                 WH_TRAIN_CROSS_CASE)
+                 WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE)
 # the D = 256 forward (with row statistics) and backward at recurrentgemma-9b's
 # attention layer in slice 12's train step: 2 x 4096 tokens, where the
 # 2048 window cuts every query row past 2048 (64 key tiles a (b, kv head));
@@ -758,14 +759,17 @@ def check_rg_lru():
     h_last and the f32 carry), then the backward's da, dgx and dh0 (with
     h0) from that carry and a random dh, dh_last given in one dtype of each
     shape (never at the training shape, whose h_last the model drops); on
-    inputs off a 16-byte boundary (a, gx and dh at different shifts); two
-    launches bit-identical at the prefill shape (the forward) and at the
-    training shape (the forward with its carry, the backward), and there
-    autograd through the kernels' Function equal to the kernels. The cases
-    must reach both forward kernels and both row alignments of the ring in
-    each dtype. Returns the max errors of the forward, the forward at the
-    training shape and the backward. The inputs come from a generator of
-    their own, so these cases do not move the other kernels' inputs."""
+    inputs off a 16-byte boundary (a, gx and dh at different shifts; the
+    backward at the training shape with a and the carry at two shifts);
+    two launches bit-identical at the prefill shape (the forward) and at
+    the training shape (the forward with its carry, the backward), and
+    there autograd through the kernels' Function equal to the kernels. The
+    cases must reach both forward kernels and both row alignments of the
+    forward's ring and of the backward's (its only kernel, a partial tile
+    below one tile) in each dtype. Returns the max errors
+    of the forward, the forward at the training shape and the backward.
+    The inputs come from a generator of their own, so these cases do not
+    move the other kernels' inputs."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rg_lru
@@ -812,7 +816,7 @@ def check_rg_lru():
         return de, dg, (h, h_last, h32), grads
 
     e_fwd = e_bwd = e_train = 0.0
-    reached = set()
+    reached, reached_bwd = set(), set()
     for i, case in enumerate(_rg_lru_cases(rg_lru.TILE_S)):
         a, gx, h0 = _rg_lru_inputs(case, gen)
         dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
@@ -820,15 +824,18 @@ def check_rg_lru():
                                device="cuda").to(a.dtype)
                    if (i + i // 2) % 2 and case != RG_LRU_TRAIN else None)
         plan = rg_lru.launch_plan(*a.shape, a.dtype)
-        bwd_grid = rg_lru.bwd_launch_plan(a.shape[0], a.shape[2]).grid
+        bwd = rg_lru.bwd_launch_plan(*a.shape, a.dtype)
         reached.add((case[3], plan.kernel, plan.aligned))
+        reached_bwd.add((case[3], bwd.kernel, bwd.aligned))
         de, dg, fwd, grads = run(case, a, gx, h0, dh, dh_last)
         print(f"[rg_lru] {case}: {plan.kernel} kernel, "
               f"{'aligned' if plan.aligned else 'shifted'} rows, grid "
               f"{plan.grid}; max|kernel-plain| {de:.3e} in h, h_last and "
               f"the f32 carry; backward (dh_last "
-              f"{'given' if dh_last is not None else 'None'}, grid "
-              f"{bwd_grid}) {dg:.3e} in da, "
+              f"{'given' if dh_last is not None else 'None'}; "
+              f"{bwd.kernel} kernel, "
+              f"{'aligned' if bwd.aligned else 'shifted'} rows, grid "
+              f"{bwd.grid}) {dg:.3e} in da, "
               f"dgx{', dh0' if h0 is not None else ''} (tol 0: "
               f"bit-identical)", flush=True)
         if case == RG_LRU_PREFILL:
@@ -872,17 +879,48 @@ def check_rg_lru():
                                 x.reshape(-1)])[k:].view(x.shape)
                      for x, k in ((a, 1), (gx, 3), (dh, 5)))
         plan = rg_lru.launch_plan(*a.shape, a.dtype, aligned=False)
+        bwd = rg_lru.bwd_launch_plan(*a.shape, a.dtype, aligned=False)
         reached.add((dtype, plan.kernel, plan.aligned))
+        reached_bwd.add((dtype, bwd.kernel, bwd.aligned))
         de, dg, *_ = run(case, a, gx, h0, dh, None)
         print(f"[rg_lru] {case}, a, gx and dh 1, 3 and 5 elements past a "
               f"16-byte boundary: {plan.kernel} kernel, shifted rows; "
-              f"max|kernel-plain| {de:.3e}, backward {dg:.3e} (tol 0)",
-              flush=True)
+              f"max|kernel-plain| {de:.3e}, backward ({bwd.kernel} kernel, "
+              f"shifted rows) {dg:.3e} (tol 0)", flush=True)
         e_fwd, e_bwd = max(e_fwd, de), max(e_bwd, dg)
+    # the backward at the training shape with a one element and the carry
+    # one float past a 16-byte boundary (storage offsets), dh aligned: the
+    # three inputs at three shifts
+    case = RG_LRU_TRAIN[:4] + ("normal",)
+    a, gx, h0 = _rg_lru_inputs(case, gen)
+    dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
+    _, _, p32 = ref.rg_lru(a, gx, h0, return_carry=True)
+    a_off, h32_off = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:]
+                      .view(x.shape) for x in (a, p32))
+    bwd = rg_lru.bwd_launch_plan(*a.shape, a.dtype, aligned=False)
+    reached_bwd.add((case[3], bwd.kernel, bwd.aligned))
+    grads = rg_lru.rg_lru_bwd(a_off, h32_off, dh, None, h0)
+    plain = ref.rg_lru_bwd(a, p32, dh, None, h0)
+    torch.cuda.synchronize()
+    dg = max((g.float() - pg.float()).abs().max().item()
+             for g, pg in zip(grads, plain))
+    print(f"[rg_lru] {case}, a 1 element and the carry 1 float past a "
+          f"16-byte boundary: backward ({bwd.kernel} kernel, shifted rows, "
+          f"grid {bwd.grid}) {dg:.3e} in da, dgx, dh0 (tol 0)", flush=True)
+    check(all(torch.equal(g, pg) for g, pg in zip(grads, plain)),
+          f"rg_lru_bwd {case} off 16-byte boundaries: differs from its "
+          f"plain version")
+    e_bwd = max(e_bwd, dg)
+    del a, gx, h0, dh, p32, a_off, h32_off, grads, plain
     want = {(dt, k, al) for dt in ("bfloat16", "float32")
             for k, al in (("step", True), ("ring", True), ("ring", False))}
     check(reached == want, f"rg_lru cases reached {sorted(reached)}, "
           f"not every kernel and row alignment {sorted(want)}")
+    want_bwd = {(dt, "ring", al) for dt in ("bfloat16", "float32")
+                for al in (True, False)}
+    check(reached_bwd == want_bwd, f"rg_lru_bwd cases reached "
+          f"{sorted(reached_bwd)}, not both row alignments of the ring "
+          f"{sorted(want_bwd)}")
     return e_fwd, e_train, e_bwd
 
 
@@ -1068,6 +1106,7 @@ def check_kernels(gen):
             WH_SELF_CASE: "flash_attention_whisper_self",
             WH_TRAIN_ENC_CASE: "flash_attention_train_whisper",
             WH_TRAIN_CROSS_CASE: "flash_attention_train_whisper_cross",
+            WH_TRAIN_SELF_CASE: "flash_attention_train_whisper_self",
             RG_TRAIN_ATTN_CASE: "flash_attention_train_d256"}
     for case in (ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES
                  + D192_CASES + D64_CASES + list(rows)):
@@ -1098,7 +1137,9 @@ def check_kernels(gen):
                        (DS3_TRAIN_ATTN_CASE, "flash_attention_bwd_mla"),
                        (WH_TRAIN_ENC_CASE, "flash_attention_bwd_whisper"),
                        (WH_TRAIN_CROSS_CASE,
-                        "flash_attention_bwd_whisper_cross")):
+                        "flash_attention_bwd_whisper_cross"),
+                       (WH_TRAIN_SELF_CASE,
+                        "flash_attention_bwd_whisper_self")):
         err[name], bwd_ran[name] = results[case]
     # the MTP layer's 2047 tokens: the same row
     err["flash_attention_bwd_mla"] = max(err["flash_attention_bwd_mla"],
@@ -2092,7 +2133,8 @@ def _rg_lru_train_rows(gen, launches, err_fwd, err_bwd):
     an element; the backward reads a, dh (in a's dtype) and the f32 carry
     and writes da and dgx, 12 bytes an element in bf16, an add and two
     multiplies an element. No single PyTorch call computes either scan
-    (library null). ``launches``: the training path's counts."""
+    (library null). ``launches``: the training path's counts. The
+    backward's row also names its plan (kernel, tile_s, stages)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rg_lru
@@ -2126,6 +2168,10 @@ def _rg_lru_train_rows(gen, launches, err_fwd, err_bwd):
                                                       warmup=1),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "graph_ms": graph_ms(kernel, calls=20)})
+    # the backward's plan at this shape: its kernel, time tile, ring depth
+    plan = rg_lru.bwd_launch_plan(b, s, d, a.dtype)
+    rows[-1].update({"plan": plan.kernel, "tile_s": plan.tile_s,
+                     "stages": plan.stages})
     return rows
 
 
@@ -2173,7 +2219,8 @@ def kernel_line(gen, launches, err, bwd_ran):
     ll = launches["llama4-scout-17b-a16e"]
     ds3, wh = launches["deepseek-v3-671b"], launches["whisper-large-v3"]
     ds3t = launches["deepseek-v3-671b train"]
-    wht = launches["whisper-large-v3 train"]
+    # whisper's training launches by shape: {wrapper: {case: launches}}
+    whs = launches["whisper-large-v3 train by shape"]
     rgt = launches["recurrentgemma-9b train"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
@@ -2285,15 +2332,19 @@ def kernel_line(gen, launches, err, bwd_ran):
                 "library_ms", "graph_ms", "library_graph_ms")})
         rows.append(row)
         # slice 11: whisper-large-v3's training forward with row statistics
-        # at the encoder's shape (8, 1500 frames) and the cross-attention's
-        # (448 queries over them); launches: the path's, at its three
-        # shapes (a third at each)
+        # at the encoder's shape (8, 1500 frames), the cross-attention's
+        # (448 queries over them) and the decoder's causal self-attention
+        # over 448 tokens (SDPA with is_causal); launches: the path's at
+        # each shape, as the wrapper counted them
         for name, case in (("flash_attention_train_whisper",
                             WH_TRAIN_ENC_CASE),
                            ("flash_attention_train_whisper_cross",
-                            WH_TRAIN_CROSS_CASE)):
-            rows.append(_flash_row(name, case, gen, wht["flash_attention"],
-                                   err[name], stats=True))
+                            WH_TRAIN_CROSS_CASE),
+                           ("flash_attention_train_whisper_self",
+                            WH_TRAIN_SELF_CASE)):
+            rows.append(_flash_row(name, case, gen,
+                                   whs["flash_attention"][case], err[name],
+                                   stats=True))
         # slice 12: recurrentgemma-9b's training forward with row
         # statistics at head dim 256 over 2 x 4096 tokens, window 2048
         rows.append(_flash_row("flash_attention_train_d256",
@@ -2304,7 +2355,9 @@ def kernel_line(gen, launches, err, bwd_ran):
     # the backward at the training shapes; no main path trains h2o-danube,
     # so the D = 80 row has no launches; the D = 256 row's: slice 12's
     # attn_local layer; the D = 192 row's: slice 10's trunk and MTP layers;
-    # the whisper rows': slice 11's three shapes, a third at each
+    # the whisper rows': slice 11's, at each of its three shapes
+    wh_bwd = {case: {"flash_attention_bwd": n}
+              for case, n in whs["flash_attention_bwd"].items()}
     for name, case, runs, v_pad in (
             ("flash_attention_bwd", TRAIN_ATTN_CASE, sct, 0),
             ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds, 0),
@@ -2312,9 +2365,12 @@ def kernel_line(gen, launches, err, bwd_ran):
             ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rgt, 0),
             ("flash_attention_bwd_mla", DS3_TRAIN_ATTN_CASE, ds3t,
              DS3_V_PAD),
-            ("flash_attention_bwd_whisper", WH_TRAIN_ENC_CASE, wht, 0),
-            ("flash_attention_bwd_whisper_cross", WH_TRAIN_CROSS_CASE, wht,
-             0)):
+            ("flash_attention_bwd_whisper", WH_TRAIN_ENC_CASE,
+             wh_bwd[WH_TRAIN_ENC_CASE], 0),
+            ("flash_attention_bwd_whisper_cross", WH_TRAIN_CROSS_CASE,
+             wh_bwd[WH_TRAIN_CROSS_CASE], 0),
+            ("flash_attention_bwd_whisper_self", WH_TRAIN_SELF_CASE,
+             wh_bwd[WH_TRAIN_SELF_CASE], 0)):
         rows.append(_flash_bwd_row(name, case, gen,
                                    runs["flash_attention_bwd"], err[name],
                                    bwd_ran[name], v_pad=v_pad))
@@ -2405,7 +2461,7 @@ def training_numbers(cfg, device, batch, seq):
 FLASH_FWD = re.compile(r"flash_(mma|simt)_kernel")
 FLASH_BWD = re.compile(r"flash_bwd_")
 RG_LRU_FWD = re.compile(r"rg_lru_(ring|step)_kernel")
-RG_LRU_BWD = re.compile(r"rg_lru_bwd_kernel")
+RG_LRU_BWD = re.compile(r"rg_lru_bwd_ring_kernel")
 
 
 def time_training(cfg, device, batch, seq):
@@ -2989,11 +3045,13 @@ def whisper_path(device):
     bit for bit run A); then serves slice 9's requests (4 x 1500 frames
     drawn from the seed, 224-token prompts) from run B's params and from
     run A's (equal tokens), and times the prefill, decode and a train step.
-    Prints the path's numbers and returns the serving launch counts and the
-    training launch counts."""
+    Prints the path's numbers and returns the serving launch counts, the
+    training launch counts and the training's flash launches by shape
+    ({wrapper name: {case of WH_TRAIN_CASES: launches}})."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.registry import build_model
 
     full = get_config("whisper-large-v3")
@@ -3030,6 +3088,9 @@ def whisper_path(device):
           f"{WH_REQUESTS} requests of {WH_BATCH} x {cfg.encoder_seq} frames "
           f"(30 s of audio) and a {WH_PROMPT}-token prompt, {WH_GEN} new "
           f"tokens, served from run B's params", flush=True)
+    flash = (fa.flash_attention, fa.flash_attention_bwd)
+    for fn in flash:
+        fn.shapes.clear()
     train_launches, (state_a, state_b) = training_path(
         cfg, device, batch=WH_TRAIN_BATCH, seq=WH_TRAIN_SEQ,
         steps=WH_TRAIN_STEPS, dram_capacity=WH_DRAM,
@@ -3039,6 +3100,19 @@ def whisper_path(device):
     check(train_launches["flash_attention"] == 48
           and train_launches["flash_attention_bwd"] == 48,
           f"{train_launches}")
+    # the same run's launches at each of its three flash shapes, as the
+    # wrappers counted them by shape: they must add up to the path's counts
+    by_shape = {fn.__name__: {case: fn.shapes[case[:7]]
+                              for case in WH_TRAIN_CASES} for fn in flash}
+    print(f"[main] {cfg.name} training launches by shape (encoder, cross, "
+          f"causal self): " + "; ".join(
+              f"{name} {list(n.values())}" for name, n in by_shape.items()),
+          flush=True)
+    check(all(sum(by_shape[fn.__name__].values())
+              == sum(fn.shapes.values()) == train_launches[fn.__name__]
+              for fn in flash),
+          f"launches by shape {by_shape} against {train_launches} "
+          f"({ {fn.__name__: dict(fn.shapes) for fn in flash} })")
     host_memory(f"{cfg.name} training")
 
     host_step(f"{cfg.name}: serve run B's params and run A's")
@@ -3066,7 +3140,7 @@ def whisper_path(device):
           f"states on the card)", flush=True)
     del model, prompts, state_b, enc
     training_numbers(cfg, device, WH_TRAIN_BATCH, WH_TRAIN_SEQ)
-    return launches, train_launches
+    return launches, train_launches, by_shape
 
 
 def main():
@@ -3232,7 +3306,7 @@ def main():
     host_memory("phase 3h", phase_end=True)
 
     # phase 3i: slices 9 and 11, whisper-large-v3 at full width
-    wh_launches, wh_train_launches = whisper_path(device)
+    wh_launches, wh_train_launches, wh_by_shape = whisper_path(device)
     host_memory("phase 3i", phase_end=True)
 
     host_step("the kernels line")
@@ -3247,7 +3321,8 @@ def main():
                              "deepseek-v3-671b": ds3_launches,
                              "deepseek-v3-671b train": ds3_train_launches,
                              "whisper-large-v3": wh_launches,
-                             "whisper-large-v3 train": wh_train_launches},
+                             "whisper-large-v3 train": wh_train_launches,
+                             "whisper-large-v3 train by shape": wh_by_shape},
                        err, bwd_ran)
     host_memory("the kernels line", phase_end=True)
     print(f"[done] {elapsed_s():.1f}s (from the script's start, the "

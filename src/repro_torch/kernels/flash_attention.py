@@ -38,9 +38,15 @@ not take (dtype, head dim, shape and contiguity are checked before the
 device, and all of it before any build); they never route an input to
 another kernel or to the plain version. ``kernels/ops.py`` sends CPU
 tensors to the plain chunked versions.
+
+Each wrapper counts its launches (``launches``) and, beside them, its
+launches by call shape (``shapes``: (B, Sq, Sk, H, KV, D, causal) ->
+count), so that a path that calls a kernel at several shapes can say how
+often it ran at each.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -127,6 +133,7 @@ def _launch_fwd(q, k, v, *, causal, window, softcap, q_offset, stats):
                  build.stream_ptr(q))
     build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
+    flash_attention.shapes[(b, sq, sk, h, kvh, d, bool(causal))] += 1
     return o, m, l
 
 
@@ -194,8 +201,11 @@ def flash_attention_bwd(q, k, v, o, m, l, do, *, causal=True, window=0,
                  build.stream_ptr(q))
     build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.shapes[(b, sq, sk, h, kvh, d, bool(causal))] += 1
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention.shapes = collections.Counter()
+flash_attention_bwd.shapes = collections.Counter()

@@ -29,8 +29,12 @@ reference differentiates its f32 scan. The carry is stored, not recomputed
 launches ``rg_lru_bwd``: one thread per (b, channel) walks S from the end,
 g_t = dh_t + a_{t+1} g_{t+1}, dgx_t = g_t, da_t = g_t h_{t-1}, dh0 = a_0 g_0,
 each product rounded before its add, so it is bit for bit the plain
-``ref.rg_lru_bwd`` and bit-identical across launches. Without a gradient
-(prefill, decode) the forward writes no carry.
+``ref.rg_lru_bwd`` and bit-identical across launches. Its one kernel, a
+``ring`` at every S (``bwd_launch_plan``), has the forward ring's blocks
+and reads a, dh and the carry one step back from a ring of time tiles
+filled in reverse order, several tiles ahead of the chain; a sequence
+shorter than one tile is one partial tile. Without a gradient (prefill,
+decode) the forward writes no carry.
 
 The wrappers take CUDA tensors only and raise on anything the kernels do
 not take (before any build); ``kernels/ops.py`` sends CPU tensors to the
@@ -53,10 +57,10 @@ _bwd_lib = None
 # the compiled instances of csrc/rg_lru.cu (its constants of the same names)
 STEP_THREADS, U = 256, 8
 ROW_BYTES, TILE_S, STAGES = 128, 32, 3
-BWD_THREADS, UB = 64, 16
+BWD_TILE_S, BWD_STAGES = 32, 3
 # the C entry points' arguments: pointers, then ints, then the stream
 FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # an H100 SM: shared memory, of which 1 KB is reserved for each block;
 # resident threads and blocks; registers, at most 255 a thread
 SM_SMEM, SMEM_RESERVED = 233_472, 1024
@@ -96,16 +100,29 @@ def launch_plan(b: int, s: int, d: int, dtype: torch.dtype,
                       (-(-d // tile_d), b), smem, blocks)
 
 
-class BwdPlan(NamedTuple):
-    tile_d: int          # channels a block, one thread each
-    unroll: int          # timesteps held in registers ahead of the chain
-    grid: Tuple[int, int]  # (channel tiles, B); every block walks all of S
-
-
-def bwd_launch_plan(b: int, d: int) -> BwdPlan:
-    """The backward kernel's blocks for (B, S, D), any S, in either
-    dtype."""
-    return BwdPlan(BWD_THREADS, UB, (-(-d // BWD_THREADS), b))
+def bwd_launch_plan(b: int, s: int, d: int, dtype: torch.dtype,
+                    aligned: bool = True) -> LaunchPlan:
+    """The backward's ring and tiles for (B, S, D) in ``dtype``, at every
+    S (below one tile, one partial tile); ``aligned``: a, dh and the carry
+    start on a 16-byte boundary. Its blocks have two threads a channel (a
+    consumer, which runs the chain, and a producer, which fills the
+    stages); a stage holds ``tile_s`` rows of a and dh (128 bytes of
+    channels a row) and of the f32 carry (4 bytes a channel), each row 16
+    bytes wider when rows are read at a shift, and two mbarriers (16
+    bytes)."""
+    del s  # every S walks the same tiles
+    size = dtype.itemsize
+    tile_s, tile_d, stages = BWD_TILE_S, ROW_BYTES // size, BWD_STAGES
+    aligned = aligned and d * size % 16 == 0 and d * 4 % 16 == 0
+    pad = 0 if aligned else 16
+    smem = stages * (tile_s * (2 * (ROW_BYTES + pad) + tile_d * 4 + pad)
+                     + 16)
+    threads = 2 * tile_d
+    blocks = min(SM_THREADS // threads, SM_BLOCKS,
+                 SM_REGISTERS // (threads * MAX_REGISTERS),
+                 SM_SMEM // (smem + SMEM_RESERVED))
+    return LaunchPlan("ring", tile_s, tile_d, stages, aligned,
+                      (-(-d // tile_d), b), smem, blocks)
 
 
 def _kernel():
@@ -229,7 +246,8 @@ def rg_lru_bwd(a, h32, dh, dh_last=None, h0=None):
                          f"float32 of a's shape {tuple(a.shape)} on its "
                          f"device, not {h32.dtype} {tuple(h32.shape)}")
     b, s, d = a.shape
-    plan = bwd_launch_plan(b, d)
+    plan = bwd_launch_plan(b, s, d, a.dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (a, h32, dh) if t is not None))
     fn = _bwd_kernel()
     da, dgx = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
@@ -237,8 +255,9 @@ def rg_lru_bwd(a, h32, dh, dh_last=None, h0=None):
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), h32.data_ptr(), ptr(h0), ptr(dh),
                  ptr(dh_last), da.data_ptr(), dgx.data_ptr(), ptr(dh0), b, s,
-                 d, _DTYPES[a.dtype], plan.tile_d, plan.unroll, plan.grid[0],
-                 build.stream_ptr(a))
+                 d, _DTYPES[a.dtype], _KERNELS[plan.kernel], plan.tile_s,
+                 plan.tile_d, plan.stages, int(plan.aligned), plan.grid[0],
+                 plan.smem, build.stream_ptr(a))
     build.check(err, "rg_lru_bwd")
     rg_lru_bwd.launches += 1
     return da, dgx, dh0

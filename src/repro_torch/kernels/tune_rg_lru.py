@@ -15,11 +15,15 @@ rows off 16-byte boundaries, so shifted rows), and the step kernel launched
 at both. The card's name and power limit come first. It needs nvcc and a
 card, and stops at the first mismatch.
 
-``--bwd`` does the same for the backward kernel (``BWD_THREADS`` channels a
-block, ``UB`` steps in registers): other (threads, unroll) pairs, each held
-bit for bit against the plain backward at recurrentgemma-9b's training
-shape (B=2, S=4096, D=4096, bf16, from the plain forward's f32 carry),
-then the wrapper's backward and the forward with its carry.
+``--bwd`` does the same for the backward's ring kernel (``BWD_TILE_S``,
+``BWD_STAGES``): every time tile of 16, 32 and 64 steps in rings of 3, 4
+and 6 stages, each held bit for bit against the plain backward from the
+plain forward's f32 carry. At recurrentgemma-9b's training shape (B=2,
+S=4096, D=4096, bf16) the variants run twice, in opposite orders; then
+once each at the prefill shape (4, 3072, 4096) and at (2, 4096, 4100),
+whose bf16 rows sit off 16-byte boundaries (shifted rows); then the
+wrapper's backward and the forward with its carry at the training shape.
+The fastest variant at the training shape by device time comes last.
 """
 from __future__ import annotations
 
@@ -35,9 +39,10 @@ from repro_torch.kernels import build, ref, rg_lru
 PAIRS = ((16, 4), (16, 6), (16, 8), (32, 2), (32, 3), (32, 4), (32, 6),
          (64, 2), (64, 3), (64, 4), (64, 6), (128, 2), (128, 3))
 SHAPE = (4, 3072, 4096)
-BWD_PAIRS = ((32, 16), (64, 8), (64, 16), (64, 32), (128, 8), (128, 16),
-             (128, 32), (256, 16))
+BWD_TILES, BWD_DEPTHS = (16, 32, 64), (3, 4, 6)
+BWD_VARIANTS = tuple((t, st) for t in BWD_TILES for st in BWD_DEPTHS)
 TRAIN_SHAPE = (2, 4096, 4096)
+BWD_SHAPES = (TRAIN_SHAPE, (4, 3072, 4096), (2, 4096, 4100))
 HBM_BPS = 3.35e12          # H100 SXM data sheet
 
 
@@ -58,14 +63,16 @@ def _source() -> str:
 
 def _bwd_source() -> str:
     cases = "\n".join(
-        f"  if (th == {t} && un == {u})\n"
-        f"    return launch_bwd<bf16, {t}, {u}>(a, h32, nullptr, dh, "
-        f"nullptr, da, dgx, nullptr, B, S, D, stream);"
-        for t, u in BWD_PAIRS)
+        f"  if (ts == {t} && st == {s})\n"
+        f"    return aligned ? launch_bwd_ring<bf16, true, {t}, {s}>("
+        f"a, h32, nullptr, dh, nullptr, da, dgx, nullptr, B, S, D, stream)\n"
+        f"                   : launch_bwd_ring<bf16, false, {t}, {s}>("
+        f"a, h32, nullptr, dh, nullptr, da, dgx, nullptr, B, S, D, stream);"
+        for t, s in BWD_VARIANTS)
     return (f'#include "{build.CSRC / "rg_lru.cu"}"\n\n'
             'extern "C" int tile_bwd(const void* a, const void* h32, '
             'const void* dh, void* da, void* dgx, int B, int S, int D, '
-            'int th, int un, void* s) {\n'
+            'int ts, int st, int aligned, void* s) {\n'
             '  cudaStream_t stream = static_cast<cudaStream_t>(s);\n'
             f'{cases}\n  return -1;\n}}\n')
 
@@ -77,6 +84,8 @@ def _compile(name, source, symbol, argtypes):
     src.write_text(source)
     res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                           str(src)], capture_output=True, text=True)
+    # the -Xptxas -v report (registers, spills) beside the library
+    (out / f"{name}.log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
@@ -127,7 +136,8 @@ def _inputs(b, s, d, gen):
 
 
 def _report(name, launch, outputs, want, bound_ms):
-    """Run once and hold the outputs bit for bit, then time ``launch``."""
+    """Run once and hold the outputs bit for bit, then time ``launch``;
+    returns its device ms."""
     for x in outputs():
         x.zero_()
     launch()
@@ -138,6 +148,7 @@ def _report(name, launch, outputs, want, bound_ms):
     print(f"{name}: {_events_ms(launch):.5f} ms by events, {dev:.5f} ms "
           f"device, {bound_ms / dev:.3f} of the {bound_ms:.5f} ms bound",
           flush=True)
+    return dev
 
 
 def _step_launch(a, gx, h0, h, h_last):
@@ -157,46 +168,70 @@ def _step_launch(a, gx, h0, h, h_last):
     return launch
 
 
-def tune_bwd(gen):
-    """The backward's (threads, unroll) pairs at TRAIN_SHAPE, twice in
-    opposite orders, then the wrapper's backward and the forward with its
-    carry, against their bytes bounds (the backward reads a and dh in bf16
-    and the carry in f32 and writes da and dgx: 12 bytes an element; the
-    forward reads a and gx and writes h and the carry: 10)."""
-    tiles = _compile("bwd", _bwd_source(), "tile_bwd",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p])
-    b, s, d = TRAIN_SHAPE
-    a, gx, _ = _inputs(b, s, d, gen)
-    dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
-    want_fwd = ref.rg_lru(a, gx, None, return_carry=True)
-    h32 = want_fwd[2]
-    want = ref.rg_lru_bwd(a, h32, dh)[:2]
-    n = a.numel()
-    bound_ms = 12 * n / HBM_BPS * 1e3
+def _report_bwd(tiles, name, a, h32, dh, want, bound_ms, ts, st, aligned):
+    """One ring variant held bit for bit and timed; its device ms."""
+    b, s, d = a.shape
     da, dgx = torch.empty_like(a), torch.empty_like(a)
-    print(f"(B, S, D) = {TRAIN_SHAPE} bf16, backward: the wrapper's plan "
-          f"{rg_lru.bwd_launch_plan(b, d)}", flush=True)
-    for th, un in BWD_PAIRS + BWD_PAIRS[::-1]:
-        def launch(th=th, un=un):
-            err = tiles(a.data_ptr(), h32.data_ptr(), dh.data_ptr(),
-                        da.data_ptr(), dgx.data_ptr(), b, s, d, th, un,
-                        build.stream_ptr(a))
-            build.check(err, "tile_bwd")
-        _report(f"  backward, {th} channels a block, {un} steps ahead",
-                launch, lambda: (da, dgx), want, bound_ms)
-    last = {"out": (da, dgx)}
 
-    def wrapper():
-        last["out"] = rg_lru.rg_lru_bwd(a, h32, dh)[:2]
-    _report("  the wrapper's backward", wrapper, lambda: last["out"], want,
-            bound_ms)
+    def launch():
+        err = tiles(a.data_ptr(), h32.data_ptr(), dh.data_ptr(),
+                    da.data_ptr(), dgx.data_ptr(), b, s, d, ts, st, aligned,
+                    build.stream_ptr(a))
+        build.check(err, "tile_bwd")
+    return _report(name, launch, lambda: (da, dgx), want, bound_ms)
 
-    def forward():
-        last["fwd"] = rg_lru.rg_lru(a, gx, None, return_carry=True)
-    last["fwd"] = tuple(torch.empty_like(x) for x in want_fwd)
-    _report("  the forward with its carry", forward, lambda: last["fwd"],
-            want_fwd, (10 * n + 2 * b * d) / HBM_BPS * 1e3)
+
+def tune_bwd(gen):
+    """The backward ring's (tile, stages) variants at BWD_SHAPES against
+    the bytes bound (a and dh read in bf16, the carry in f32, da and dgx
+    written: 12 bytes an element), then the wrapper's backward and the
+    forward with its carry (10 bytes an element)."""
+    tiles = _compile("bwd", _bwd_source(), "tile_bwd",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p])
+    times = {}
+    for b, s, d in BWD_SHAPES:
+        a, gx, _ = _inputs(b, s, d, gen)
+        dh = torch.randn(a.shape, generator=gen, device="cuda").to(a.dtype)
+        want_fwd = ref.rg_lru(a, gx, None, return_carry=True)
+        h32 = want_fwd[2]
+        want = ref.rg_lru_bwd(a, h32, dh)[:2]
+        n = a.numel()
+        bound_ms = 12 * n / HBM_BPS * 1e3
+        aligned = int(d * a.element_size() % 16 == 0)
+        print(f"(B, S, D) = {(b, s, d)} bf16, backward: the wrapper's plan "
+              f"{rg_lru.bwd_launch_plan(b, s, d, a.dtype)}", flush=True)
+        order = BWD_VARIANTS + (BWD_VARIANTS[::-1] if (b, s, d) ==
+                                TRAIN_SHAPE else ())
+        for ts, st in order:
+            dev = _report_bwd(
+                tiles, f"  ring {ts} x {st}, "
+                f"{'aligned' if aligned else 'shifted'} rows", a, h32, dh,
+                want, bound_ms, ts, st, aligned)
+            if (b, s, d) == TRAIN_SHAPE:
+                times.setdefault((ts, st), []).append(dev)
+        if (b, s, d) != TRAIN_SHAPE:
+            continue
+        da, dgx = torch.empty_like(a), torch.empty_like(a)
+        last = {"out": (da, dgx)}
+
+        def wrapper():
+            last["out"] = rg_lru.rg_lru_bwd(a, h32, dh)[:2]
+        _report("  the wrapper's backward", wrapper, lambda: last["out"],
+                want, bound_ms)
+
+        def forward():
+            last["fwd"] = rg_lru.rg_lru(a, gx, None, return_carry=True)
+        last["fwd"] = tuple(torch.empty_like(x) for x in want_fwd)
+        _report("  the forward with its carry", forward,
+                lambda: last["fwd"], want_fwd,
+                (10 * n + 2 * b * d) / HBM_BPS * 1e3)
+        del da, dgx, last
+        del a, gx, dh, want_fwd, h32, want
+    best = min(times, key=lambda k: max(times[k]))
+    print(f"fastest at {TRAIN_SHAPE} by the slower of its two device times: "
+          f"ring {best[0]} x {best[1]}: "
+          f"{', '.join(f'{t:.5f}' for t in times[best])} ms", flush=True)
 
 
 def main(argv=None):

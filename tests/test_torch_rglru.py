@@ -175,12 +175,14 @@ def _computed(plan, b, s, d):
     return done
 
 
-def _ring_copies(plan, n, shift, size):
+def _ring_copies(plan, n, shift, size, row_bytes=rg_lru_kernel.ROW_BYTES):
     """The offsets (from the block's first channel) each 16-byte copy of
-    one row brings in, for a block of n channels whose row starts ``shift``
-    elements past a 16-byte boundary, as ``copy_tile`` picks them."""
+    one row brings in, for a block of n channels of ``size`` bytes whose
+    row of ``row_bytes`` starts ``shift`` elements past a 16-byte boundary,
+    as ``copy_rows`` picks them (a row read at a shift is copied as its
+    aligned window, 16 bytes wider)."""
     vec = 16 // size
-    chunks = rg_lru_kernel.ROW_BYTES // 16 + (0 if plan.aligned else 1)
+    chunks = row_bytes // 16 + (0 if plan.aligned else 1)
     return [range(j * vec - shift, (j + 1) * vec - shift)
             for j in range(chunks) if j * vec - shift < n]
 

@@ -44,7 +44,8 @@ from repro_torch.optim.grad import clip_by_global_norm
 from repro_torch.optim.schedule import constant
 from repro_torch.runtime.train_step import (TrainState, cross_entropy,
                                             make_train_step)
-from test_torch_rglru import CASES, ROOT, SMOKE_CASES, _inputs
+from test_torch_rglru import (CASES, ROOT, SMOKE_CASES, _computed, _inputs,
+                              _ring_copies)
 from test_torch_train_integration import _train_loop_kill_restore_bit_exact
 
 # ------------------------------------------------------- the plain backward
@@ -146,33 +147,150 @@ H100_SMS = 132
 
 @pytest.mark.parametrize("case", SMOKE_CASES, ids=str)
 def test_bwd_launch_plan_covers_each_channel_once(case):
-    """Every (b, channel) has one thread, which walks all of S; no block is
-    without work; a block's threads fit an SM."""
-    b, _, d, _, _ = case
-    plan = rg_lru_kernel.bwd_launch_plan(b, d)
-    assert plan.grid[1] == b and plan.tile_d <= 1024
-    owners = np.zeros(d, np.int64)
-    for x in range(plan.grid[0]):
-        owners[x * plan.tile_d:min(d, (x + 1) * plan.tile_d)] += 1
-    assert (owners == 1).all()
-    assert (plan.grid[0] - 1) * plan.tile_d < d
+    """Every (b, t, channel) is computed once, by the ring at every S (one
+    partial tile below one tile); no block is without work; each channel of
+    a row of a and dh (in a's dtype) and of the f32 carry is brought in by
+    exactly one 16-byte copy (cp.async) and every copy holds one of them,
+    at every shift a row can have, and the copies of a row fit its stage
+    row."""
+    b, s, d, dtype, _ = case
+    dt = getattr(torch, dtype)
+    size = dt.itemsize
+    for aligned in (True, False):
+        plan = rg_lru_kernel.bwd_launch_plan(b, s, d, dt, aligned=aligned)
+        assert (_computed(plan, b, s, d) == 1).all()
+        assert (plan.grid[0] - 1) * plan.tile_d < d
+        assert plan.tile_d <= 1024
+        assert plan.kernel == "ring" and plan.tile_s == \
+            rg_lru_kernel.BWD_TILE_S
+        assert plan.tile_d * size == rg_lru_kernel.ROW_BYTES
+        assert plan.aligned == (aligned and d * size % 16 == 0)
+        pad = 0 if plan.aligned else 16
+        for esize, row_bytes in ((size, rg_lru_kernel.ROW_BYTES),
+                                 (4, plan.tile_d * 4)):
+            vec = 16 // esize
+            shifts = range(vec) if not plan.aligned else [0]
+            for n in {plan.tile_d, d - (plan.grid[0] - 1) * plan.tile_d}:
+                for shift in shifts:
+                    copies = _ring_copies(plan, n, shift, esize, row_bytes)
+                    got = np.concatenate([list(c) for c in copies])
+                    assert sorted(got[(got >= 0) & (got < n)]) == \
+                        list(range(n))
+                    assert all(c.start < n and c.stop > 0 for c in copies)
+                    assert 16 * len(copies) <= row_bytes + pad
+
+
+@pytest.mark.parametrize("case", SMOKE_CASES, ids=str)
+def test_bwd_launch_plan_fits_an_h100_sm(case):
+    """The plan's shared memory is its ring's stages (a, dh and the carry,
+    each row padded by 16 bytes at a shift, and two mbarriers a stage) and
+    fits an H100 SM with its reserved KB; its blocks an SM follow from
+    threads (two a channel), shared memory and registers at 255 a
+    thread."""
+    b, s, d, dtype, _ = case
+    for aligned in (True, False):
+        plan = rg_lru_kernel.bwd_launch_plan(b, s, d, getattr(torch, dtype),
+                                             aligned=aligned)
+        pad = 0 if plan.aligned else 16
+        stage = plan.tile_s * (2 * (rg_lru_kernel.ROW_BYTES + pad)
+                               + plan.tile_d * 4 + pad)
+        assert plan.smem == plan.stages * (stage + 16)
+        threads = 2 * plan.tile_d  # a consumer and a producer a channel
+        assert 0 <= plan.smem + rg_lru_kernel.SMEM_RESERVED \
+            <= rg_lru_kernel.SM_SMEM
+        assert plan.blocks_per_sm == min(
+            rg_lru_kernel.SM_THREADS // threads, rg_lru_kernel.SM_BLOCKS,
+            rg_lru_kernel.SM_REGISTERS // (threads
+                                           * rg_lru_kernel.MAX_REGISTERS),
+            rg_lru_kernel.SM_SMEM // (plan.smem
+                                      + rg_lru_kernel.SMEM_RESERVED)) >= 1
 
 
 def test_bwd_launch_plan_spreads_the_training_shape_over_the_card():
-    """At recurrentgemma-9b's training shape (2, 4096, 4096) the 8,192
-    chains fall into 128 blocks, about one on each of the H100's 132 SMs."""
-    plan = rg_lru_kernel.bwd_launch_plan(2, 4096)
+    """At recurrentgemma-9b's training shape (2, 4096, 4096) bf16 the ring's
+    blocks (one batch row, 64 channels each) are 128, about one on each of
+    the H100's 132 SMs, and its tiles in flight ahead of the chain come to
+    at least 3 MB on the card (a register walk of 16 steps a chain keeps
+    ~1 MB)."""
+    plan = rg_lru_kernel.bwd_launch_plan(2, 4096, 4096, torch.bfloat16)
+    assert plan.kernel == "ring" and plan.aligned
     assert plan.grid == (64, 2) and plan.tile_d == 64
-    assert H100_SMS - 8 <= plan.grid[0] * plan.grid[1] <= H100_SMS
+    blocks = plan.grid[0] * plan.grid[1]
+    assert H100_SMS - 8 <= blocks <= H100_SMS
+    stage = plan.tile_s * (2 * rg_lru_kernel.ROW_BYTES + plan.tile_d * 4)
+    assert blocks * (plan.stages - 1) * stage >= 3 << 20
+    assert plan.blocks_per_sm >= 1
+
+
+def _ring_walk(a, h32, dh, dh_last, h0, tile_s, tile_d):
+    """The ring kernel's walk in torch: a block a (b, channel segment), the
+    time tiles from the end, a stage's row r holding a_t, dh_t and the
+    carry one step back (h32 row t - 1; h0 at t = 0), each product rounded
+    before its add (f32 tensors round each op)."""
+    b, s, d = a.shape
+    da = torch.empty(a.shape, dtype=torch.float32)
+    dgx = torch.empty(a.shape, dtype=torch.float32)
+    dh0 = torch.empty((b, d), dtype=torch.float32)
+    for bi in range(b):
+        for c0 in range(0, d, tile_d):
+            cs = slice(c0, min(d, c0 + tile_d))
+            g_in = (dh_last[bi, cs].float() if dh_last is not None
+                    else torch.zeros(cs.stop - c0))
+            for t0 in range(-(-s // tile_s) * tile_s - tile_s, -1, -tile_s):
+                rows = min(tile_s, s - t0)
+                sa = a[bi, t0:t0 + rows, cs].float()
+                sd = (dh[bi, t0:t0 + rows, cs].float() if dh is not None
+                      else None)
+                sh = h32[bi, max(t0 - 1, 0):t0 + rows - 1, cs]
+                if t0 == 0:
+                    init = (h0[bi, cs].float() if h0 is not None
+                            else torch.zeros(cs.stop - c0))
+                    sh = torch.cat([init[None], sh])
+                for r in range(rows - 1, -1, -1):
+                    g = g_in if sd is None else sd[r] + g_in
+                    dgx[bi, t0 + r, cs] = g
+                    da[bi, t0 + r, cs] = g * sh[r]
+                    g_in = sa[r] * g
+            dh0[bi, cs] = g_in
+    return (da.to(a.dtype), dgx.to(a.dtype),
+            None if h0 is None else dh0.to(a.dtype))
+
+
+# (B, S, D, h0 given, dh given, dh_last given, dtype): ragged S, one tile
+# exactly, a ragged channel segment, no dh, both dtypes, and S below one
+# tile (one partial tile; S = 1 reads no carry row)
+WALK_CASES = [(2, 70, 80, True, True, True, "bfloat16"),
+              (1, 32, 64, False, True, False, "bfloat16"),
+              (2, 33, 40, True, False, True, "float32"),
+              (3, 95, 36, False, True, True, "float32"),
+              (2, 1, 72, True, True, True, "bfloat16"),
+              (2, 31, 40, True, True, False, "float32")]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_bwd_ring_walk_equals_the_plain_backward(case):
+    """The ring's walk (tiles from the end, the carry one step back in a
+    stage) at the plan's tiles gives ``ref.rg_lru_bwd``'s bits."""
+    b, s, d, with_h0, with_dh, with_last, dtype = case
+    _, (at, gt, ht) = _inputs(b, s, d, with_h0, dtype, seed=6)
+    _, _, dht, dlt = _cotangents(b, s, d, dtype, with_last, seed=9)
+    _, _, h32 = ref.rg_lru(at, gt, ht, return_carry=True)
+    dht = dht if with_dh else None
+    plan = rg_lru_kernel.bwd_launch_plan(b, s, d, at.dtype)
+    assert plan.kernel == "ring"
+    got = _ring_walk(at, h32, dht, dlt, ht, plan.tile_s, plan.tile_d)
+    want = ref.rg_lru_bwd(at, h32, dht, dlt, ht)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
 
 
 def test_bwd_plan_and_entry_points_match_the_cuda_source():
-    """The plan's constants are the compiled instance's, and the ctypes
-    argument lists match the C entry points (6 pointers, 11 ints and the
-    stream for the forward; 8 pointers, 7 ints and the stream for the
-    backward)."""
+    """The plan's constants are the compiled instances' (the C entry point
+    refuses any other plan), and the ctypes argument
+    lists match the C entry points (6 pointers, 11 ints and the stream for
+    the forward; 8 pointers, 11 ints and the stream for the backward)."""
     src = (ROOT / "src/repro_torch/kernels/csrc/rg_lru.cu").read_text()
-    for name in ("BWD_THREADS", "UB"):
+    for name in ("BWD_TILE_S", "BWD_STAGES"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == getattr(rg_lru_kernel, name), name
     for name, args in (("rg_lru_fwd", rg_lru_kernel.FWD_ARGTYPES),
