@@ -103,7 +103,12 @@ Phases; any failure exits non-zero:
      the same restart at 4 + 4 steps of 8 x 2048 tokens; the flash forward
      (with row statistics) and the flash backward kernel run once a layer
      in every step; besides them only quantize / dequantize run, for the
-     int8 checkpoint.
+     int8 checkpoint. After run B resumes, the same step's checkpoint is
+     restored once more from the survivors of the kill by
+     ``launch/elastic.py::elastic_restore`` onto a (data=1, model=1)
+     ``DeviceMesh`` in a world of one process on NCCL: every leaf a DTensor
+     placed as the rule set says, its local tensor bit for bit the saved
+     state (``elastic_check``).
   3e. the fifth path, the training restart of slice 5: full-width
      deepseek-coder-33b (1 of 62 layers, bf16 params, Adafactor with bf16
      momentum and f32 factored second moments) through the same restart
@@ -697,14 +702,19 @@ def device_kernels(fn, want, tag, observations=5):
     return out, names
 
 
-def environment():
-    import torch
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def environment():
+    import torch
+    print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -1401,7 +1411,8 @@ def _kernels():
 
 
 def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
-                     int8=True, kill=True, keep_states=False):
+                     int8=True, kill=True, keep_states=False,
+                     elastic=False):
     """A training path through ``launch/train.py::train_loop`` (slice 3's
     xlstm-350m, slice 4's starcoder2-3b), deterministic on the card: run A
     takes ``steps`` steps of ``batch`` x ``seq`` tokens; run B takes half of
@@ -1409,7 +1420,10 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
     ``dram_capacity`` bytes each, waits for the flush, loses server/0
     (``kill``; without it every server stays up), restores into a state
     drawn from another seed and takes the rest. B must equal A bit for bit.
-    With ``int8``, A's final state then makes an int8-moment checkpoint in a
+    With ``elastic``, the checkpoint run B resumed from is then restored
+    once more from the same buffer through ``launch/elastic.py::
+    elastic_restore`` onto a one-device mesh (``elastic_check``). With
+    ``int8``, A's final state then makes an int8-moment checkpoint in a
     fresh burst buffer, restored onto the card.
 
     Returns (timings, launches, n_quant, states); launches are the kernel
@@ -1482,6 +1496,9 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
         t["restore_s"] = mgr.metrics[half - 1].get("restore_s")
         if hist_b + hist_b2 != hist_a:
             _diagnose_restore(mgr, half - 1, saved, state_b)
+        if elastic:
+            host_step(f"{cfg.name}: elastic restore {restore_how}")
+            elastic_check(cfg, mgr, half - 1, saved, state_b)
     del bb, mgr
     release_host_memory()
     check(t["restore_s"] is not None and [s for s, _ in hist_b2]
@@ -1644,6 +1661,82 @@ def _diagnose_restore(mgr, step, saved, like):
     print(f"[diag] a second restore of the step-{step} checkpoint: "
           f"{len(bad)} leaves differ from the saved state {bad[:8]}; data "
           f"step {int(restored['data']['step'])}", flush=True)
+
+
+def elastic_check(cfg, mgr, step, saved, like):
+    """The paper's restart onto a smaller mesh, on the card: in a world of
+    one process on NCCL (``launch/mesh.py::init_single_process``), restore
+    the step's checkpoint from ``mgr``'s buffer (after the kill, from the
+    survivors' replicas) through ``elastic_restore`` onto
+    ``make_host_mesh(1, 1)``, into a fresh target shaped as the train state
+    ``like``. Every leaf's local tensor must equal the saved state
+    (``_digests``) bit for bit and every leaf's placements must be the rule
+    set's (scalar and zero-size leaves replicated). Prints the leaves and
+    bytes placed and the restore's seconds (host clock around
+    ``synchronize``) beside the card; the group is destroyed before it
+    returns."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.launch.elastic import elastic_restore, reshard_plan
+    from repro_torch.launch.mesh import init_single_process, make_host_mesh
+    from repro_torch.launch.sharding import zip_axes
+    from repro_torch.models.common import map_tree
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.train_step import make_optimizer
+
+    init_single_process("cuda")
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        model, optimizer = build_model(cfg), make_optimizer(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, ck_step = elastic_restore(
+            mgr, cfg, model, optimizer, mesh,
+            {"params": map_tree(torch.empty_like, like.params),
+             "opt_state": map_tree(torch.empty_like, like.opt_state)},
+            step)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(ck_step == step, f"elastic_restore restored step {ck_step}, "
+              f"not {step}")
+        rules, axes = reshard_plan(cfg, model, optimizer, mesh)
+
+        def rule_placements(a, leaf):
+            if leaf.dim() == 0 or leaf.numel() == 0:
+                want = [Replicate()] * mesh.ndim
+            else:
+                want = rules.sharding(a, tuple(leaf.shape))[1]
+            return list(leaf.placements) == want
+
+        held = zip_axes(rule_placements, {"params": axes.params,
+                                          "opt_state": axes.opt_state},
+                        placed)
+        off = [name for name, ok in ser.tree_paths(held) if not ok]
+        check(not off, f"elastic restore: {len(off)} leaves are not placed "
+              f"as the rule set says: {off[:8]}")
+        local = {k: map_tree(lambda d: d.to_local(), v)
+                 for k, v in placed.items()}
+        got = _digests(local["params"], local["opt_state"])
+        bad = [name for name, d in saved.items() if got.get(name) != d]
+        check(list(got) == list(saved) and not bad, f"elastic restore: "
+              f"{len(bad)} leaves differ from the saved state {bad[:8]}")
+        leaves = ser.tree_paths(local)
+        nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+        shard = sum(any(not p.is_replicate() for p in d.placements)
+                    for _, d in ser.tree_paths(placed))
+        print(f"[elastic] {cfg.name}: elastic_restore of the step-{step} "
+              f"checkpoint from the burst buffer's survivors onto a "
+              f"(data=1, model=1) mesh over NCCL: {len(leaves)} leaves, "
+              f"{nbytes} bytes ({nbytes / 1e9:.3f} GB) placed in "
+              f"{secs:.3f}s (host clock around synchronize); every leaf "
+              f"bit for bit the saved state, every placement the rule "
+              f"set's ({shard} leaves sharded, {len(leaves) - shard} "
+              f"replicated); {card_line()}", flush=True)
+        del placed, local
+    finally:
+        dist.destroy_process_group()
 
 
 def wait_flushed(mgr, step, timeout_s: float = 600.0):
@@ -2379,9 +2472,10 @@ def kernel_line(gen, launches, err, bwd_ran):
 
 def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
                   per_step, int8=True, timing=True, kill=True,
-                  keep_states=False):
+                  keep_states=False, elastic=False):
     """A training phase: ``training_restart`` (``int8``: with its int8
-    round; ``kill``: server/0 lost before the restore) and, with
+    round; ``kill``: server/0 lost before the restore; ``elastic``: with
+    the elastic restore onto a one-device mesh) and, with
     ``timing``, ``training_numbers``, under torch's deterministic
     algorithms; the launch counts must be exactly ``per_step`` launches a
     step (run A's steps and run B's) of each kernel named there, the int8
@@ -2397,7 +2491,7 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
         t, launches, n_quant, states = training_restart(
             cfg, device, batch=batch, seq=seq, steps=steps,
             dram_capacity=dram_capacity, int8=int8, kill=kill,
-            keep_states=keep_states)
+            keep_states=keep_states, elastic=elastic)
         want = {name: 0 for name in launches}
         want.update({name: n * 2 * steps for name, n in per_step.items()})
         want.update(quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
@@ -3232,7 +3326,7 @@ def main():
         cfg, device, batch=SC_BATCH, seq=SC_SEQ, steps=SC_STEPS,
         dram_capacity=SC_DRAM,
         per_step={"flash_attention": SC_LAYERS,
-                  "flash_attention_bwd": SC_LAYERS})
+                  "flash_attention_bwd": SC_LAYERS}, elastic=True)
     host_memory("phase 3d", phase_end=True)
 
     # phase 3e: slice 5's path, deepseek-coder-33b training (Adafactor)

@@ -16,6 +16,9 @@ there, quantization runs where the leaf lives: on the card a leaf is
 quantized by the CUDA kernel and only the int8 payload and the scales cross
 to the host; restore copies the payload to the target leaf's device and
 dequantizes there. Leaves come back in the dtype they were saved with.
+A DTensor leaf is written as its whole value, so a checkpoint does not
+depend on the mesh it was saved from (``launch/elastic.py`` restores it
+onto another).
 """
 from __future__ import annotations
 
@@ -108,8 +111,20 @@ def _device_bytes(payload: bytes, device) -> torch.Tensor:
                                                                copy=True)
 
 
+def _whole(leaf: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (gathered from its mesh: every rank of the
+    mesh serializes the same leaves in the same order), as the reference's
+    ``np.asarray`` gathers a sharded array; any other tensor as it is."""
+    if type(leaf) is torch.Tensor:
+        return leaf
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def serialize_leaf(leaf: torch.Tensor, quantize: bool) -> Tuple[bytes, dict]:
-    """Returns (payload bytes, metadata dict)."""
+    """Returns (payload bytes, metadata dict). A DTensor leaf is written as
+    its whole value, byte for byte the checkpoint of the plain tensor."""
+    leaf = _whole(leaf)
     meta = {"shape": list(leaf.shape), "dtype": dtype_name(leaf.dtype),
             "quant": False}
     if not quantize:

@@ -1,0 +1,223 @@
+"""Logical-axis -> mesh sharding rules (DP / FSDP / TP / EP / SP).
+
+Counterpart of ``repro/launch/sharding.py``, with the same rule table and
+the same resolution: every parameter descriptor carries logical axis
+names, and ``RuleSet.spec`` resolves them against the mesh with (a)
+divisibility checks (a dim only shards if evenly divisible) and (b)
+conflict avoidance (one mesh axis at most once per tensor, resolved in dim
+order). A spec is a tuple with one entry per tensor dim: a mesh axis name,
+a tuple of names for a composite axis, or ``None`` — the entries of the
+reference's ``PartitionSpec``.
+
+Where the reference builds a ``NamedSharding``, the port gives DTensor
+placements (``RuleSet.placements``): ``Shard(dim)`` on every mesh dim the
+spec uses for tensor dim ``dim``, ``Replicate()`` on the others. A
+composite axis shards its tensor dim over its mesh dims major first, as
+JAX lays out ``("data", "model")``.
+
+Baseline rule table:
+  batch        -> (pod, data)   data parallelism (pod = DCN-only axis)
+  seq          -> model         sequence-sharded KV caches (decode) / CP
+  embed        -> data          FSDP: weights gathered at use
+  ffn/vocab    -> model         tensor parallelism (Megatron col/row)
+  heads        -> model         head TP when head count divides the axis
+  experts      -> (data, model) one expert a device (deepseek) or
+                  data          one expert a row (llama4)
+
+Model code runs eagerly on local tensors: ``constrain`` is a no-op unless
+a rule set is active, and then redistributes only DTensors.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from repro_torch.launch.mesh import mesh_sizes
+
+# candidates: logical axis -> tuple of options; each option is a tuple of
+# mesh axes used jointly for that dim (tried in order until one fits)
+DEFAULT_RULES: Dict[Optional[str], Tuple[Tuple[str, ...], ...]] = {
+    "batch": (("pod", "data"), ("data",), ("pod",)),
+    "seq": (("model",),),
+    "embed": (("data",),),
+    "embed_out": (("model",),),
+    "ffn": (("model",),),
+    "ffn_out": (("data",),),
+    "vocab": (("model",),),
+    "heads": (("model",),),
+    "kv_heads": (),
+    "head_dim": (),
+    "head_dim2": (),
+    "q_lora": (),
+    "kv_lora": (),
+    "rope_dim": (),
+    "experts": (("data", "model"), ("data",), ("model",)),
+    "experts_flat": (("model",),),
+    "layers": (),
+    "enc_dim": (),
+    None: (),
+}
+
+
+def is_axes_leaf(x) -> bool:
+    """A logical-axes tuple (not a NamedTuple of subtrees)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+class RuleSet:
+    """Rules over ``mesh``: a DeviceMesh, or anything with
+    ``mesh_dim_names`` and ``shape`` (to plan a mesh without processes)."""
+
+    def __init__(self, mesh, overrides: Optional[dict] = None):
+        self.mesh = mesh
+        self.sizes = mesh_sizes(mesh)
+        self.rules = dict(DEFAULT_RULES)
+        if overrides:
+            self.rules.update(overrides)
+
+    def spec(self, logical_axes: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None) -> tuple:
+        """Resolve logical axes to a spec with divisibility + conflict
+        checks. shape=None skips divisibility (constraints only)."""
+        used: set = set()
+        out = []
+        for i, name in enumerate(logical_axes):
+            choice = None
+            for option in self.rules.get(name, ()):
+                axes = tuple(a for a in option if a in self.sizes)
+                if not axes or any(a in used for a in axes):
+                    continue
+                k = math.prod(self.sizes[a] for a in axes)
+                if shape is not None and shape[i] % k != 0:
+                    continue
+                choice = axes
+                break
+            if choice:
+                used.update(choice)
+                out.append(choice if len(choice) > 1 else choice[0])
+            else:
+                out.append(None)
+        return tuple(out)
+
+    def placements(self, spec: Sequence) -> list:
+        """DTensor placements of ``spec`` on this mesh, one a mesh dim."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = list(self.sizes)
+        out = [Replicate() for _ in names]
+        for dim, entry in enumerate(spec):
+            axes = entry if isinstance(entry, tuple) else \
+                (() if entry is None else (entry,))
+            idx = [names.index(a) for a in axes]
+            if idx != sorted(idx):
+                # a DTensor shards one tensor dim over mesh dims in mesh
+                # order only; the rule table's composites are in that order
+                raise ValueError(f"composite axis {axes} is not in the "
+                                 f"mesh's order {tuple(names)}")
+            for j in idx:
+                out[j] = Shard(dim)
+        return out
+
+    def sharding(self, logical_axes, shape=None):
+        """(mesh, placements): the port's ``NamedSharding``."""
+        return self.mesh, self.placements(self.spec(logical_axes, shape))
+
+    def tree_shardings(self, axes_tree, shape_tree):
+        """axes_tree: logical-axis tuples; shape_tree: the matching tree of
+        tensors (or anything with ``shape``). Returns a tree of
+        (mesh, placements)."""
+        return zip_axes(lambda a, s: self.sharding(a, tuple(s.shape)),
+                        axes_tree, shape_tree)
+
+
+def zip_axes(fn, axes, other):
+    """``fn(axes leaf, other's subtree)`` over the axes tree's leaves, in
+    its structure (nested dicts, tuples and NamedTuples); module-level
+    recursion (``models/common.py::zip_map`` says why)."""
+    if is_axes_leaf(axes):
+        return fn(axes, other)
+    if isinstance(axes, dict):
+        return {k: zip_axes(fn, axes[k], other[k]) for k in axes}
+    if isinstance(axes, tuple):
+        kids = [zip_axes(fn, a, o) for a, o in zip(axes, other)]
+        return type(axes)(*kids) if hasattr(axes, "_fields") else tuple(kids)
+    raise TypeError(f"not an axes tree node: {type(axes).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# activation constraints from inside model code (contextvar-scoped)
+
+_ACTIVE: contextvars.ContextVar[Optional[RuleSet]] = \
+    contextvars.ContextVar("repro_torch_ruleset", default=None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[RuleSet]):
+    token = _ACTIVE.set(rules)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_rules() -> Optional[RuleSet]:
+    return _ACTIVE.get()
+
+
+def constrain(x, logical_axes: Sequence[Optional[str]]):
+    """``x`` outside a rule set. Inside one, a DTensor is redistributed to
+    the resolved placements (divisibility-checked against its global
+    shape); a plain tensor is a rank's local value and comes back as it
+    is."""
+    rules = _ACTIVE.get()
+    if rules is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    _, placements = rules.sharding(logical_axes, tuple(x.shape))
+    return x.redistribute(rules.mesh, placements)
+
+
+# ---------------------------------------------------------------------------
+# cache logical axes (mirrors transformer.init_cache structure)
+
+
+def cache_axes(cfg, cache) -> Any:
+    """Assign logical axes to decode-cache leaves by their role. The cache
+    tree is {seg*: {pos*: kind-cache}}; leaves are identified by key path."""
+    from repro_torch.checkpoint.serializer import tree_map_with_path
+    return tree_map_with_path(
+        lambda path, leaf: _cache_leaf_axes(path.split("/"),
+                                            len(leaf.shape)), cache)
+
+
+def _cache_leaf_axes(names, rank: int) -> tuple:
+    last = names[-1] if names else ""
+    if last in ("k", "v"):              # (L,B,S,KV,HD) attn ring/cross
+        return ("layers", "batch", "seq", "kv_heads", "head_dim")[:rank]
+    if last == "c_kv":
+        return ("layers", "batch", "seq", "kv_lora")[:rank]
+    if last == "k_rope":
+        return ("layers", "batch", "seq", "rope_dim")[:rank]
+    if last == "C":                     # (L,B,H,dk,dv) mlstm state
+        return ("layers", "batch", "heads", "head_dim", "head_dim2")[:rank]
+    if last == "n":
+        return ("layers", "batch", "heads", "head_dim")[:rank]
+    if last == "m":
+        return ("layers", "batch", "heads")[:rank]
+    if last == "conv":                  # (L,B,W-1,du)
+        return ("layers", "batch", None, "ffn")[:rank]
+    if last == "h":                     # (L,B,width) rglru state
+        return ("layers", "batch", "ffn")[:rank]
+    if "state" in names:                # slstm tuple (L,B,H,dh)
+        return ("layers", "batch", "heads", "head_dim")[:rank]
+    return ("layers", "batch") + (None,) * max(rank - 2, 0)
+
+
+def batch_axes(batch) -> Any:
+    """Input batch dict: inputs/labels (B,S); enc_input (B,S,E)."""
+    return {k: ("batch",) + (None,) * (len(v.shape) - 1)
+            for k, v in batch.items()}

@@ -23,8 +23,9 @@ two terms is commutative, so at top-1 and top-2 the result equals the
 reference's bit for bit; at top-8 (deepseek-v3-671b) the two orders agree
 only within f32 rounding (``tests/test_torch_moe.py::
 test_apply_moe_matches_reference``, case "top8": routing ids equal, then
-outputs within 1e-5). The expert-parallel ``shard_map`` path of the
-reference (``moe_sharded.py``) is not ported.
+outputs within 1e-5). Under an active rule set whose mesh fits the expert
+count, ``apply_moe`` takes the expert-parallel path (``moe_sharded.py``),
+as the reference does.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ import math
 
 import torch
 
+from repro_torch.launch.sharding import active_rules, constrain
+from repro_torch.models import moe_sharded
 from repro_torch.models.common import P, activation
 
 
@@ -70,11 +73,17 @@ def route(cfg, p, xt):
 
 
 def apply_moe(cfg, p, x):
-    """x: (B, S, d) -> (B, S, d). Runs in a profiler range named ``moe``, so
-    that a trace can tell the FFN's device time from the rest of a layer's
-    (``chip_smoke.py`` splits it into the expert products and the
-    dispatch); with no profiler on, it records nothing."""
+    """x: (B, S, d) -> (B, S, d). Uses the expert-parallel path
+    (moe_sharded.py) when a distributed rule set is active and the expert
+    count matches the mesh; else the sorted dispatch below. Runs in a
+    profiler range named ``moe``, so that a trace can tell the FFN's device
+    time from the rest of a layer's (``chip_smoke.py`` splits it into the
+    expert products and the dispatch); with no profiler on, it records
+    nothing."""
     with torch.profiler.record_function("moe"):
+        rules = active_rules()
+        if moe_sharded.sharded_moe_available(cfg, rules):
+            return moe_sharded.apply_moe_sharded(cfg, p, x, rules)
         return _apply_moe(cfg, p, x)
 
 
@@ -102,12 +111,13 @@ def _apply_moe(cfg, p, x):
 
     xe = x.new_zeros((e * cap + 1, d))
     xe[slot] = xt[stok]
-    xe = xe[:-1].view(e, cap, d)
+    xe = constrain(xe[:-1].view(e, cap, d), ("experts", None, None))
 
     # --- batched expert MLP ---
     gate = torch.bmm(xe, p["w_gate"].to(dt))
     up = torch.bmm(xe, p["w_up"].to(dt))
     ye = torch.bmm(activation(cfg, gate) * up, p["w_down"].to(dt))
+    ye = constrain(ye, ("experts", None, None))
 
     # --- combine, in a fixed order: un-sort, then sum each token's k ---
     ye_flat = torch.cat([ye.reshape(e * cap, d), x.new_zeros((1, d))])

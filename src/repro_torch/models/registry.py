@@ -17,6 +17,7 @@ from repro_torch.models.common import tree_leaves
 class Model:
     cfg: Any
     init: Callable                      # (seed, device="cuda") -> params
+    param_axes: Callable                # () -> logical axes tree
     forward: Callable                   # (params, tokens, enc_input=None) -> logits
     init_cache: Callable                # (batch, max_seq, device="cuda") -> cache
     decode_step: Callable               # (params, cache, tokens, pos, enc_input=None)
@@ -34,6 +35,7 @@ def build_model(cfg) -> Model:
     return Model(
         cfg=cfg,
         init=init,
+        param_axes=lambda: transformer.param_axes(cfg),
         forward=lambda params, tokens, enc_input=None: transformer.forward(
             cfg, params, tokens, enc_input),
         init_cache=lambda batch, max_seq, device="cuda":

@@ -353,6 +353,11 @@ def init_params(cfg, gen: torch.Generator):
     return init_tree(model_descs(cfg), gen, cfg_param_dtype(cfg), gen.device)
 
 
+def param_axes(cfg):
+    """The params' tree with each leaf's logical axes (a tuple of names)."""
+    return map_tree(lambda d: d.axes, model_descs(cfg))
+
+
 def _layer(tree, r: int):
     """Layer ``r`` of a stacked segment tree (views, no copies)."""
     return map_tree(lambda a: a[r], tree)

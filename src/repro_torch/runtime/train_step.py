@@ -11,8 +11,11 @@ multi-token-prediction loss at weight 0.3, as the reference does. A
 config with an encoder or a cross source (whisper-large-v3,
 llama-3.2-vision-90b) takes the batch's float ``enc_input`` (B, encoder_seq,
 encoder_dim), sliced into microbatches with the tokens. Eager: there is no
-jit, and the state is replaced, not donated. Sharding constraints and the
-reference's ``state_logical_axes`` (sharding) are not ported yet.
+jit, and the state is replaced, not donated. ``state_logical_axes`` gives
+the train state's logical axes, which ``launch/sharding.py`` resolves to
+placements on a mesh (``launch/elastic.py`` restores onto one); the
+reference's sharding constraints on the microbatches are for an SPMD
+compiler, and the eager step has none.
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.common import DTYPES, padded_vocab, tree_leaves
-from repro_torch.optim.adafactor import Adafactor
-from repro_torch.optim.adamw import AdamW
+from repro_torch.models.common import (DTYPES, map_tree, padded_vocab,
+                                      tree_leaves, zip_map)
+from repro_torch.optim.adafactor import Adafactor, AdafactorState
+from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.optim.grad import clip_by_global_norm
 from repro_torch.optim.schedule import warmup_cosine
 
@@ -52,6 +56,36 @@ def init_train_state(cfg, model, optimizer, seed: int = 0,
     (the reference takes a PRNG key), and the optimizer's zero state."""
     params = model.init(seed, device=device)
     return TrainState(params=params, opt_state=optimizer.init(params))
+
+
+def state_logical_axes(cfg, model, optimizer):
+    """Logical-axis tree matching TrainState(params, opt_state): optimizer
+    state mirrors param axes (factored Adafactor moments drop the factored
+    dim's annotation), in the port's ``AdamWState`` / ``AdafactorState``
+    layouts, so its leaf paths are the checkpoint's."""
+    descs = transformer.model_descs(cfg)
+    p_axes = map_tree(lambda d: d.axes, descs)
+    p_shapes = map_tree(lambda d: d.shape, descs)
+
+    if isinstance(optimizer, AdamW):
+        opt_axes = AdamWState(step=(), m=p_axes, v=p_axes)
+    elif isinstance(optimizer, Adafactor):
+        def vr_axes(a, s):
+            return a[:-1] if len(s) >= 2 else a
+
+        def vc_axes(a, s):
+            return a[:-2] + (a[-1],) if len(s) >= 2 else (None,)
+
+        def m_axes(a, s):
+            return a if optimizer.momentum else (None,)
+
+        opt_axes = AdafactorState(step=(),
+                                  vr=zip_map(vr_axes, p_axes, p_shapes),
+                                  vc=zip_map(vc_axes, p_axes, p_shapes),
+                                  m=zip_map(m_axes, p_axes, p_shapes))
+    else:
+        raise TypeError(f"no state axes for {type(optimizer).__name__}")
+    return TrainState(params=p_axes, opt_state=opt_axes)
 
 
 def cross_entropy(logits, labels, vocab_size: int):

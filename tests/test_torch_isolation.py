@@ -32,7 +32,9 @@ def test_import_loads_no_jax_and_no_reference_module():
         "repro_torch.optim.grad, repro_torch.optim.adamw, "
         "repro_torch.runtime.train_step, repro_torch.launch.train, "
         "repro_torch.models.moe, repro_torch.models.mla, "
-        "repro_torch.configs.deepseek_v3_671b\n"
+        "repro_torch.configs.deepseek_v3_671b, repro_torch.launch.mesh, "
+        "repro_torch.launch.sharding, repro_torch.launch.elastic, "
+        "repro_torch.models.moe_sharded\n"
         "from repro_torch.configs.base import get_config\n"
         "get_config('recurrentgemma-9b'), get_config('xlstm-350m')\n"
         "get_config('deepseek-v3-671b')\n"
