@@ -69,7 +69,13 @@ Phases; any failure exits non-zero:
      whisper's three training calls (8 x 1500 frames non-causal, 448
      queries over them, causal over 448), held per element (rtol one bf16
      ulp, atol one bf16 ulp of the gradient's root mean square), two
-     launches bit-identical at each.
+     launches bit-identical at each. Slice 14's shapes: gemma3-4b's
+     forward at (8, 2048, 8, 4, 256) in training and (4, 4096, 8, 4, 256)
+     in the prefill, each with its 1024 window and causal, held per
+     element like llama4's; its backward at the training shape with and
+     without the window, and h2o-danube-1.8b's forward and backward at
+     (4, 5120, 32, 8, 80) with its 4096 window, the backwards held per
+     element like whisper's, two launches bit-identical at each.
   3. the first path, the serving restart of slice 1: full-width
      starcoder2-3b (depth cut from 30 to 2 layers, random weights from a
      seed, bf16) with a training-layout state is saved through the burst
@@ -79,25 +85,25 @@ Phases; any failure exits non-zero:
      every kernel of the path must have launched the expected number of
      times (counts are zeroed just before and read just after).
   3b. the second and twelfth paths, slices 12 and 2: full-width
-     recurrentgemma-9b (one repeat of each segment unit: 4 of 38 layers,
-     1.94 G params) trains with AdamW through ``train_loop`` on batches of
+     recurrentgemma-9b (one layer of each kind: 2 of 38 layers, 1.47 G
+     params) trains with AdamW through ``train_loop`` on batches of
      2 x 4096 tokens (past the 2048-token window): run A 4 steps, run B the
      same 4 from the same seed without the buffer, equal to run A bit for
      bit in every leaf; each step launches the RG-LRU forward (with its
      f32 carry) and backward once an rglru layer and the D = 256 flash
-     forward and backward once (24 / 24 / 8 / 8). Then run A's params
+     forward and backward once (8 / 8 / 8 / 8). Then run A's params
      restart from a params-only checkpoint and serve 3 request batches of
      3072-token prompts, with the same checks as slice 1's; the RG-LRU
      kernel runs in every prefill and decode step. The path runs with the
      allocator's expandable segments (``expandable_segments``).
   3c. the third path, the training restart of slice 3: full-width
-     xlstm-350m (one repeat of its segment unit: 7 mLSTM + 1 sLSTM of 24
-     layers, f32 params) trains through ``launch/train.py::train_loop`` on
+     xlstm-350m (one layer of each kind: 1 mLSTM + 1 sLSTM of 24 layers,
+     f32 params) trains through ``launch/train.py::train_loop`` on
      batches of 8 x 2048 tokens, deterministic: run A takes 4 steps; run B
      takes 2, checkpoints through the burst buffer unquantized, loses
      server/0, restores from the replicas into a state drawn from another
      seed and takes 2 more. B's params and moments must equal A's bit for
-     bit. The mLSTM kernel runs in every forward (7 launches a step).
+     bit. The mLSTM kernel runs in every forward (1 launch a step).
   3d. the fourth path, the training restart of slice 4: full-width
      starcoder2-3b (1 of 30 layers, bf16 params, f32 AdamW moments) through
      the same restart at 4 + 4 steps of 8 x 2048 tokens; the flash forward
@@ -165,6 +171,30 @@ Phases; any failure exits non-zero:
      A's (equal tokens; 36 forward launches); a profile of the prefill
      splits the encoder's device time from the decoder's, one of a decode
      step the attention over the context cache.
+  3j. the thirteenth and fourteenth paths, slice 14: the examples' own
+     functions at full width. Part A, the quickstart's path
+     (``examples/torch_quickstart.py``): gemma3-4b (d_model 2560, 8 heads
+     over 4 KV at head dim 256, d_ff 10240 GeGLU, vocab 262144 tied,
+     embed_scale, window 1024), depth cut to one attn_local and one attn
+     layer of 34 (859,845,120 params); ``train_with_checkpoints`` takes 8
+     AdamW steps of 8 x 2048 tokens with an int8 checkpoint (3.44 GB) after
+     the 4th and the 8th over 4 servers of 8 GiB; the flushes are waited
+     for and ``buffer_report`` prints the quickstart's residency, pressure,
+     manifest and file lines; the step-8 checkpoint is restored into a
+     state from another seed (params bit for bit, moments within their
+     int8 bound); ``greedy_serve`` serves a batch of 4 prompts of 4096
+     tokens, 32 new tokens each, from the restored params and from the
+     trained ones (equal tokens). The D = 256 flash forward and backward
+     run once a layer a step, the forward once a layer a prefill; the
+     step is timed and profiled from the path's own trained state. Part B,
+     the restart demo's path (``examples/torch_restart_demo.py``):
+     h2o-danube-1.8b at phase 3f's cut; ``restart_after_eviction`` trains
+     on 4 x 5120 tokens (past the 4096 window): run A 4 steps, run B 2, an
+     unquantized checkpoint (3.03 GB) flushed before the save returns,
+     server/0 killed, the checkpoint evicted until nothing of it is
+     buffered, ``fs.stage``, restored into a state from seed 123, 2 more
+     steps; every leaf bit for bit run A's, only server/0 dead; the D = 80
+     flash forward and backward run once a layer a step.
   4. numbers for each path, taken right after it (its model is freed before
      the next path): save / restore seconds, prefill ms and decode tok/s
      (serving), step time, tokens/s, save / flush / restore-after-kill and
@@ -256,12 +286,17 @@ RG_LRU_DECODE = (RG_BATCH, 1, RG_WIDTH, "bfloat16", "normal")
 # pipeline's batches of 2 x 4096 tokens, 8192 a step as slice 10's and
 # past the 2048-token window; the batch shape is chosen for the card's
 # memory (the step holds the 2 x 4096 x 256,000 logits in f32 and their
-# gradient beside a 19.40 GB train state), not taken from a published
+# gradient beside a 14.70 GB train state), not taken from a published
 # training setup. Run A 4 steps, run B the same 4 from the same seed
-# without the buffer: the AdamW state's 19.40 GB would take a round of its
+# without the buffer: the AdamW state's 14.70 GB would take a round of its
 # own through it (slice 10's 12.51 GB took 137 s and 58.4 GB of the host's
 # 96); run A's params then go through 3b's params-only restart
 RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 2, 4096, 4
+# 3b's depth: one layer of each kind, 2 of 38 (1.47 G params). Until the
+# examples' phase 3j came, one repeat of each segment unit (3 rglru and 1
+# attn_local, 1.94 G); cut for the script's time limit: the params-only
+# round through the buffer is the phase's largest part
+RG_SEGMENTS = ((("rglru", "attn_local"), 1),)
 # the scan of its training step: the forward (with the f32 carry) and the
 # backward, from a zero state (h0 None), no gradient of h_last
 RG_LRU_TRAIN = (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH, "bfloat16", "none")
@@ -285,12 +320,18 @@ def _rg_lru_cases(tile_s):
     return [(b, s, d, dtype, h0) for b, s, d, h0 in shapes
             for dtype in ("bfloat16", "float32")]
 
-# slice 3: xlstm-350m training, one repeat of its (mLSTM x 7, sLSTM) unit
+# slice 3: xlstm-350m training at full width, cut to XL_SEGMENTS
 # 4 steps (2 + 2 around the kill): its sLSTM's host loop makes a step take
 # 4 to 10 s, so the path takes its step times from run A, builds no model
 # to time or trace (a device-only trace of a step took ~33 s) and skips the
 # int8 round (slices 4 and 5 take it), and the run stays inside its limit
 XL_BATCH, XL_SEQ, XL_STEPS = 8, 2048, 4
+# one layer of each kind, 2 of 24 (76,829,696 params, a 0.92 GB
+# checkpoint). Until the examples' phase 3j came, one repeat of the
+# (mLSTM x 7, sLSTM) unit (8 layers, 165,026,816 params, 1.98 GB); cut for
+# the script's time limit: the sLSTM's loop and the buffer's round after
+# the kill are the phase's time, and the second shrinks with the depth
+XL_SEGMENTS = ((("mlstm", "slstm"), 1),)
 XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
 # a server's DRAM, as for the two training paths below: about four times
 # the server's share of the checkpoint at replication 2, so that the copies
@@ -298,7 +339,7 @@ XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
 # DRAM. At 2 to 4 GiB (under three times the share) they spilled to the
 # SSD logs, and on an H100 host the survivors then went on moving chunks
 # for minutes after the kill
-XL_DRAM = 4 << 30                     # ~0.92 GiB a server (~2.0 GB)
+XL_DRAM = 4 << 30                     # ~0.43 GiB a server (~0.92 GB)
 # mLSTM forward: (shape (B, S, H, D), chunk, dtype, atol, rtol). The
 # reference's kernel tests (tests/test_kernels.py) with their tolerances in
 # f32 (the CUDA-core kernel); every bf16 case (the tensor-core kernel)
@@ -403,8 +444,9 @@ D80_CASES = [case for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2))
 H2O_PREFILL_CASE = (H2O_BATCH, H2O_PROMPT, H2O_PROMPT, H2O_HEADS, H2O_KV,
                     H2O_HEAD_DIM, True, H2O_WINDOW, 0.0, 0, "bfloat16",
                     D256_BF16_TOL)
-# the D = 80 backward at a training-like shape (h2o-danube trains nowhere on
-# the main paths; the shape is its layer's at 8 x 2048 tokens)
+# the D = 80 backward at a training-like shape, its layer's at 8 x 2048
+# tokens (where the 4096 window is inert); phase 3j trains h2o-danube at
+# 4 x 5120 (H2O_TRAIN_CASE)
 H2O_TRAIN_ATTN_CASE = (8, 2048, 2048, H2O_HEADS, H2O_KV, H2O_HEAD_DIM, True,
                        H2O_WINDOW, 0.0, 0, "bfloat16", D256_BF16_TOL)
 # slice 7: llama4-scout-17b-a16e serving at full width, one layer of each of
@@ -563,21 +605,73 @@ BWD_EDGE_CASES += [
     D192_PADDED_CASE]
 # the backward cases whose V and dO are zero in their last DS3_V_PAD columns
 V_PADDED_CASES = (D192_PADDED_CASE, DS3_TRAIN_ATTN_CASE, DS3_MTP_ATTN_CASE)
+# slice 14, part A: the quickstart's path (examples/torch_quickstart.py) at
+# gemma3-4b's full width, depth cut from 34 layers to one of each kind
+# (an attn_local layer with its 1024 window, rope theta 1e4, and an attn
+# layer, causal, rope theta 1e6), as slice 7 cut llama4; 8 steps of 8 x
+# 2048 tokens (past the window) with an int8 checkpoint after the 4th and
+# the 8th, the step-8 checkpoint restored into a state from another seed,
+# then a request batch of 4 prompts of 4096 tokens, 32 new tokens each,
+# served from the restored params and from the trained ones (3 request
+# batches cut to 1 for the script's time limit)
+G3_SEGMENTS = ((("attn_local", "attn"), 1),)
+G3_PARAMS = 859_845_120
+G3_BATCH, G3_SEQ, G3_STEPS, G3_CKPT_EVERY = 8, 2048, 8, 4
+G3_WINDOW, G3_HEADS, G3_KV, G3_HEAD_DIM = 1024, 8, 4, 256
+G3_SERVE_BATCH, G3_PROMPT, G3_GEN, G3_REQUESTS = 4, 4096, 32, 1
+# ~1.72 GB a server at replication 2 over 4 for each of the two retained
+# int8 checkpoints (3.44 GB each: bf16 params and int8 AdamW moments)
+G3_DRAM = 8 << 30
+# its flash calls: the training forward (with row statistics) and backward
+# of the attn_local layer (window 1024) and of the attn layer (causal), and
+# the prefill's of each over 4096 tokens. Outputs of a 1024- to 4096-key
+# softmax are small, so the forwards are held per element like llama4's
+# (``_p_rounding_atol``) and the backwards like recurrentgemma's
+# (BWD_RMS_CASES)
+G3_TRAIN_LOCAL_CASE = (G3_BATCH, G3_SEQ, G3_SEQ, G3_HEADS, G3_KV,
+                       G3_HEAD_DIM, True, G3_WINDOW, 0.0, 0, "bfloat16",
+                       D256_BF16_TOL)
+G3_TRAIN_GLOBAL_CASE = G3_TRAIN_LOCAL_CASE[:7] + (0,) \
+    + G3_TRAIN_LOCAL_CASE[8:]
+G3_PREFILL_LOCAL_CASE = (G3_SERVE_BATCH, G3_PROMPT, G3_PROMPT) \
+    + G3_TRAIN_LOCAL_CASE[3:]
+G3_PREFILL_GLOBAL_CASE = G3_PREFILL_LOCAL_CASE[:7] + (0,) \
+    + G3_PREFILL_LOCAL_CASE[8:]
+# slice 14, part B: the restart demo's path
+# (examples/torch_restart_demo.py) at h2o-danube-1.8b's full width and
+# phase 3f's depth cut (H2O_LAYERS): AdamW on batches of 4 x 5120 tokens
+# (slice 6's prompt length, past the 4096 window, so that the window cuts
+# rows in the backward); run A 4 steps, run B 2, an unquantized checkpoint
+# flushed before the save returns, server/0 killed, the checkpoint
+# evicted, staged and restored into a state from seed 123, 2 more steps
+# (6, 3 and 3 cut to 4, 2 and 2 for the script's time limit)
+H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, H2O_TRAIN_STEPS, H2O_CKPT_AT = 4, 5120, 4, 2
+H2O_TRAIN_DRAM = 8 << 30   # ~1.52 GB a server of the 3.03 GB checkpoint
+# its flash forward (with row statistics) and backward, once a layer a
+# step: slice 6's prefill shape (H2O_PREFILL_CASE), whose forward phase 2
+# holds as it holds the prefill's
+H2O_TRAIN_CASE = H2O_PREFILL_CASE
+P_ROUND_CASES += (G3_TRAIN_LOCAL_CASE, G3_TRAIN_GLOBAL_CASE,
+                  G3_PREFILL_LOCAL_CASE, G3_PREFILL_GLOBAL_CASE)
 # the training shapes, where two launches must be bit-identical
 TRAIN_SHAPES = (TRAIN_ATTN_CASE, DS_TRAIN_ATTN_CASE, H2O_TRAIN_ATTN_CASE,
                 RG_TRAIN_ATTN_CASE, DS3_TRAIN_ATTN_CASE, DS3_MTP_ATTN_CASE,
-                WH_TRAIN_ENC_CASE, WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE)
+                WH_TRAIN_ENC_CASE, WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE,
+                G3_TRAIN_LOCAL_CASE, G3_TRAIN_GLOBAL_CASE, H2O_TRAIN_CASE)
 # The backward cases whose gradients are held per element with rtol
 # D256_BF16_TOL and, as atol, D256_BF16_TOL times the plain gradient's root
 # mean square over its tensor (one bf16 ulp of a typical element) in place
 # of an atol of D256_BF16_TOL: whisper's training shapes, whose 1500-key
 # softmax leaves dq, dk and dv near 0.03, where 8e-3 would pass a lost
-# ragged tile's share, and recurrentgemma-9b's over its 2048-key window. The kernel splits P and dS into hi / lo bf16 pairs
+# ragged tile's share, recurrentgemma-9b's over its 2048-key window,
+# gemma3-4b's over its 1024 window and causally over 2048 keys, and
+# h2o-danube-1.8b's over its 4096 window. The kernel splits P and dS into hi / lo bf16 pairs
 # (2^-16 of each), so it differs from the plain version by the one bf16
 # rounding of each result (the rtol) and f32 sums in another order (far
 # below the atol)
 BWD_RMS_CASES = (WH_TRAIN_ENC_CASE, WH_TRAIN_CROSS_CASE, WH_TRAIN_SELF_CASE,
-                 RG_TRAIN_ATTN_CASE)
+                 RG_TRAIN_ATTN_CASE, G3_TRAIN_LOCAL_CASE, G3_TRAIN_GLOBAL_CASE,
+                 H2O_TRAIN_CASE)
 
 BWD_CASES = [case[:11] + (BWD_F32_TOL if case[10] == "float32"
                           else D256_BF16_TOL,)
@@ -1117,7 +1211,11 @@ def check_kernels(gen):
             WH_TRAIN_ENC_CASE: "flash_attention_train_whisper",
             WH_TRAIN_CROSS_CASE: "flash_attention_train_whisper_cross",
             WH_TRAIN_SELF_CASE: "flash_attention_train_whisper_self",
-            RG_TRAIN_ATTN_CASE: "flash_attention_train_d256"}
+            RG_TRAIN_ATTN_CASE: "flash_attention_train_d256",
+            G3_TRAIN_LOCAL_CASE: "flash_attention_train_gemma3",
+            G3_TRAIN_GLOBAL_CASE: "flash_attention_train_gemma3_global",
+            G3_PREFILL_LOCAL_CASE: "flash_attention_gemma3",
+            G3_PREFILL_GLOBAL_CASE: "flash_attention_gemma3_global"}
     for case in (ATTN_CASES + BF16_CASES + D256_CASES + D80_CASES
                  + D192_CASES + D64_CASES + list(rows)):
         *_, causal, window, cap, q_offset, dtype, tol = case
@@ -1139,17 +1237,22 @@ def check_kernels(gen):
             check_repeat_launch(case, q, k, v, out)
         del q, k, v, out, plain, atol
 
+    # part B of phase 3j trains h2o-danube-1.8b at slice 6's prefill shape
+    err["flash_attention_train_d80"] = err["flash_attention_d80"]
     results, bwd_ran = check_flash_bwd(), {}
     for case, name in ((TRAIN_ATTN_CASE, "flash_attention_bwd"),
                        (DS_TRAIN_ATTN_CASE, "flash_attention_bwd_dsc"),
-                       (H2O_TRAIN_ATTN_CASE, "flash_attention_bwd_d80"),
+                       (H2O_TRAIN_CASE, "flash_attention_bwd_d80"),
                        (RG_TRAIN_ATTN_CASE, "flash_attention_bwd_d256"),
                        (DS3_TRAIN_ATTN_CASE, "flash_attention_bwd_mla"),
                        (WH_TRAIN_ENC_CASE, "flash_attention_bwd_whisper"),
                        (WH_TRAIN_CROSS_CASE,
                         "flash_attention_bwd_whisper_cross"),
                        (WH_TRAIN_SELF_CASE,
-                        "flash_attention_bwd_whisper_self")):
+                        "flash_attention_bwd_whisper_self"),
+                       (G3_TRAIN_LOCAL_CASE, "flash_attention_bwd_gemma3"),
+                       (G3_TRAIN_GLOBAL_CASE,
+                        "flash_attention_bwd_gemma3_global")):
         err[name], bwd_ran[name] = results[case]
     # the MTP layer's 2047 tokens: the same row
     err["flash_attention_bwd_mla"] = max(err["flash_attention_bwd_mla"],
@@ -1567,8 +1670,9 @@ def training_restart(cfg, device, *, batch, seq, steps, dram_capacity,
 # 3g on one H100 host (a stall over 6 s). Three missed pings take ~20 s at
 # 10 s (a server stalled for 7 s in a test: dead at 0.25 s, alive at 10
 # s). No serving path kills a server; the training paths that do keep the
-# default, and slice 10's, which kills none, takes this cadence (its
-# 12.51 GB flush had two servers declared dead at the default)
+# default, and slice 10's and slice 14's quickstart path, which kill none,
+# take this cadence (slice 10's 12.51 GB flush had two servers declared
+# dead at the default)
 SERVE_STABILIZE_S = 10.0
 # how long the survivors' message queues must stay empty after a kill
 # before the restore starts, and the longest a restore waits for that
@@ -2090,7 +2194,7 @@ def _flash_row(name, case, gen, launches, err, stats=False, plain_iters=20,
                                         return_stats=stats)
     ms = cuda_ms(kernel)
     # graphs of ~30 ms: 20 calls of llama4's 13 ms prefill made a graph
-    # of 260 ms, replayed 12 times for the kernel and for SDPA each
+    # of 260 ms, replayed 6 times for the kernel and for SDPA each
     calls = max(2, min(200, round(30 / ms)))
     return {
         "name": name, "route": "cuda",
@@ -2179,8 +2283,9 @@ def _flash_bwd_row(name, case, gen, launches, err, ran, v_pad=0):
 
 def graph_ms(fn, calls: int = 200) -> float:
     """Device time of one call of ``fn``: ``calls`` calls captured in one
-    CUDA graph, the graph replayed and timed with CUDA events, so the
-    host's cost of each launch is not counted."""
+    CUDA graph, the graph replayed 5 times after 1 (10 after 2 until the
+    examples' phase 3j came) and timed with CUDA events, so the host's cost
+    of each launch is not counted."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2192,7 +2297,7 @@ def graph_ms(fn, calls: int = 200) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return cuda_ms(graph.replay, iters=10, warmup=2) / calls
+    return cuda_ms(graph.replay, iters=5, warmup=1) / calls
 
 
 def _rg_lru_time(case, gen):
@@ -2315,6 +2420,10 @@ def kernel_line(gen, launches, err, bwd_ran):
     # whisper's training launches by shape: {wrapper: {case: launches}}
     whs = launches["whisper-large-v3 train by shape"]
     rgt = launches["recurrentgemma-9b train"]
+    # slice 14: gemma3-4b's launches by shape ({wrapper: {case: launches}};
+    # its two layers share each shape's count) and h2o-danube-1.8b's
+    # training launches
+    g3s, h2ot = launches["gemma3-4b by shape"], launches["h2o-danube-1.8b train"]
     with torch.inference_mode():
         rows = [_flash_row("flash_attention", PREFILL_CASE, gen,
                            sc["flash_attention"], err["flash_attention"]),
@@ -2445,8 +2554,35 @@ def kernel_line(gen, launches, err, bwd_ran):
                                rgt["flash_attention"],
                                err["flash_attention_train_d256"],
                                stats=True))
-    # the backward at the training shapes; no main path trains h2o-danube,
-    # so the D = 80 row has no launches; the D = 256 row's: slice 12's
+        # slice 14: gemma3-4b's forward at head dim 256, 8 heads over 4 KV,
+        # in training (with row statistics, 8 x 2048 tokens) and in the
+        # prefill (4 x 4096); each row's times are the attn_local layer's
+        # 1024 window (SDPA with a boolean window mask), as global_* the
+        # attn layer's causal attention (SDPA with is_causal); launches:
+        # both layers' at the row's shape
+        for name, local, glob, stats in (
+                ("flash_attention_train_gemma3", G3_TRAIN_LOCAL_CASE,
+                 G3_TRAIN_GLOBAL_CASE, True),
+                ("flash_attention_gemma3", G3_PREFILL_LOCAL_CASE,
+                 G3_PREFILL_GLOBAL_CASE, False)):
+            n = g3s["flash_attention"][local]
+            row = _flash_row(name, local, gen, n, err[name], stats=stats,
+                             plain_iters=5)
+            other = _flash_row(f"{name}_global", glob, gen, n,
+                               err[f"{name}_global"], stats=stats,
+                               plain_iters=5)
+            row.update({f"global_{key}": other[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "graph_ms", "library_graph_ms")})
+            rows.append(row)
+        # slice 14: h2o-danube-1.8b's training forward with row statistics
+        # at head dim 80 over 4 x 5120 tokens, window 4096
+        rows.append(_flash_row("flash_attention_train_d80", H2O_TRAIN_CASE,
+                               gen, h2ot["flash_attention"],
+                               err["flash_attention_train_d80"], stats=True,
+                               plain_iters=5))
+    # the backward at the training shapes; the D = 80 row's: slice 14's
+    # h2o-danube-1.8b over 4 x 5120 tokens; the D = 256 row's: slice 12's
     # attn_local layer; the D = 192 row's: slice 10's trunk and MTP layers;
     # the whisper rows': slice 11's, at each of its three shapes
     wh_bwd = {case: {"flash_attention_bwd": n}
@@ -2454,7 +2590,7 @@ def kernel_line(gen, launches, err, bwd_ran):
     for name, case, runs, v_pad in (
             ("flash_attention_bwd", TRAIN_ATTN_CASE, sct, 0),
             ("flash_attention_bwd_dsc", DS_TRAIN_ATTN_CASE, ds, 0),
-            ("flash_attention_bwd_d80", H2O_TRAIN_ATTN_CASE, h2o, 0),
+            ("flash_attention_bwd_d80", H2O_TRAIN_CASE, h2ot, 0),
             ("flash_attention_bwd_d256", RG_TRAIN_ATTN_CASE, rgt, 0),
             ("flash_attention_bwd_mla", DS3_TRAIN_ATTN_CASE, ds3t,
              DS3_V_PAD),
@@ -2467,6 +2603,21 @@ def kernel_line(gen, launches, err, bwd_ran):
         rows.append(_flash_bwd_row(name, case, gen,
                                    runs["flash_attention_bwd"], err[name],
                                    bwd_ran[name], v_pad=v_pad))
+    # slice 14: gemma3-4b's backward at the attn_local layer's 1024 window,
+    # as global_* at the attn layer's causal attention; launches: both
+    # layers'
+    n = g3s["flash_attention_bwd"][G3_TRAIN_LOCAL_CASE]
+    row = _flash_bwd_row("flash_attention_bwd_gemma3", G3_TRAIN_LOCAL_CASE,
+                         gen, n, err["flash_attention_bwd_gemma3"],
+                         bwd_ran["flash_attention_bwd_gemma3"])
+    other = _flash_bwd_row("flash_attention_bwd_gemma3_global",
+                           G3_TRAIN_GLOBAL_CASE, gen, n,
+                           err["flash_attention_bwd_gemma3_global"],
+                           bwd_ran["flash_attention_bwd_gemma3_global"])
+    row.update({f"global_{key}": other[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "graph_ms")})
+    rows.append(row)
     return rows
 
 
@@ -2531,14 +2682,14 @@ def _layers(cfg, kind):
     return sum(unit.count(kind) * reps for unit, reps in cfg.segments)
 
 
-def training_numbers(cfg, device, batch, seq):
+def training_numbers(cfg, device, batch, seq, built=None):
     """Print ``time_training``'s numbers under torch's deterministic
     algorithms, as the path trains."""
     import torch
     torch.use_deterministic_algorithms(True)
     try:
         step_s, tok_s, peak_gb, update_s = time_training(cfg, device, batch,
-                                                         seq)
+                                                         seq, built)
     finally:
         torch.use_deterministic_algorithms(False)
     frames = (f", and {batch * cfg.encoder_seq / step_s:.1f} frames/s "
@@ -2558,20 +2709,23 @@ RG_LRU_FWD = re.compile(r"rg_lru_(ring|step)_kernel")
 RG_LRU_BWD = re.compile(r"rg_lru_bwd_ring_kernel")
 
 
-def time_training(cfg, device, batch, seq):
+def time_training(cfg, device, batch, seq, built=None):
     """Step time, tokens/s and peak device memory of the train step at the
     path's shape (one step after a warm-up one, deterministic as on the
     path), one profiled step with the flash forward's and backward's share
     of its busy time (and the RG-LRU forward's and backward's, for configs
     with rglru layers), and the optimizer update's own seconds (host clock
     around ``synchronize``, after a warm-up update; the params stand in for
-    the gradients)."""
+    the gradients). ``built``: the (optimizer, train state, step function)
+    to time, the path's own; by default built from SEED."""
     import torch
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.train import batch_to, build
 
     host_step(f"{cfg.name}: timing the train step")
-    _, optimizer, state, step_fn = build(cfg, seed=SEED, device=device)
+    if built is None:
+        _, *built = build(cfg, seed=SEED, device=device)
+    optimizer, state, step_fn = built
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
                                global_batch=batch, enc_seq=cfg.encoder_seq,
                                enc_dim=cfg.encoder_dim)
@@ -2613,7 +2767,7 @@ def rg_training(cfg, device):
     on the pipeline's batches of RG_TRAIN_BATCH x RG_TRAIN_SEQ tokens, no
     checkpoint: run A RG_TRAIN_STEPS steps, then run B the same steps from
     the same seed. Run A's train state waits on the host (two train states
-    of 19.40 GB and a step's logits and gradients do not fit the card
+    of 14.70 GB and a step's logits and gradients do not fit the card
     together); B must equal A bit for bit in every leaf of params and
     optimizer state (``torch.equal`` leaf by leaf, each of A's leaves
     brought back to the card in turn), with exactly one RG-LRU forward and
@@ -2675,7 +2829,7 @@ def rg_training(cfg, device):
                  for name, n in per_step.items()})
     print(f"[main] launches in train run A -> run B: {launches} (expected "
           f"{want})", flush=True)
-    check(launches == want and launches["rg_lru_bwd"] == 24
+    check(launches == want and launches["rg_lru_bwd"] == 8
           and launches["flash_attention_bwd"] == 8,
           f"launch counts {launches} != {want}")
     print(f"[main] losses {[round(l, 4) for _, l in hist_a]}; run B (the "
@@ -2714,8 +2868,8 @@ def expandable_segments():
 
 def recurrentgemma_path(device):
     """Phase 3b, slices 12 and 2: recurrentgemma-9b at full width, one
-    repeat of each segment unit (4 of 38 layers: 3 ``rglru``, 1
-    ``attn_local``; 1.94 G params). It trains (``rg_training``: AdamW on
+    layer of each kind (``RG_SEGMENTS``: 2 of 38 layers, 1 ``rglru`` and 1
+    ``attn_local``; 1.47 G params). It trains (``rg_training``: AdamW on
     2 x 4096 tokens, past the 2048-token window, the RG-LRU forward and
     backward kernels and the D = 256 flash forward and backward in every
     step, run B bit for bit run A); then run A's trained params restart
@@ -2727,10 +2881,8 @@ def recurrentgemma_path(device):
     import torch
     from repro_torch.configs.base import get_config
 
-    # depth cut as the reference's reduced() cuts it
     full = get_config("recurrentgemma-9b")
-    cfg = dataclasses.replace(full, segments=tuple(
-        (unit, min(reps, 1)) for unit, reps in full.segments))
+    cfg = dataclasses.replace(full, segments=RG_SEGMENTS)
     check(cfg.resolved_head_dim == RG_HEAD_DIM
           and cfg.window_size == RG_WINDOW and cfg.lru_width == RG_WIDTH
           and cfg.num_heads == RG_HEADS and cfg.num_kv_heads == 1
@@ -3237,6 +3389,310 @@ def whisper_path(device):
     return launches, train_launches, by_shape
 
 
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout as a module, its ``main`` not
+    run: phase 3j drives the examples' own functions."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def quickstart_path(device):
+    """Phase 3j part A, slice 14: the quickstart's path
+    (``examples/torch_quickstart.py``) at gemma3-4b's full width, one
+    ``attn_local`` and one ``attn`` layer of its 34 (``G3_SEGMENTS``).
+    ``train_with_checkpoints`` takes G3_STEPS steps of G3_BATCH x G3_SEQ
+    tokens with AdamW (bf16 params, f32 moments) and an int8 checkpoint
+    after every G3_CKPT_EVERY-th over 4 servers of G3_DRAM; the flushes
+    are waited for and ``buffer_report`` prints the quickstart's residency,
+    pressure, manifest and file lines; the step-8 checkpoint is restored
+    into a state drawn from another seed (params bit for bit, moments
+    within their int8 bound); ``greedy_serve`` serves G3_REQUESTS batches
+    of G3_SERVE_BATCH prompts of G3_PROMPT tokens, G3_GEN tokens each,
+    from the restored params and from the trained ones (equal tokens).
+    Expected launches: the flash forward and backward once a layer a step,
+    the forward once a layer a prefill; quantize once a moment leaf a save,
+    dequantize once a moment leaf in the restore. Then the serving, and
+    the step from the path's trained state, are timed and profiled.
+    Returns the launch counts and the flash launches by shape ({wrapper
+    name: {case: launches}})."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import BBConfig, BurstBufferSystem
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import build
+
+    qs = _example("torch_quickstart")
+    full = get_config("gemma3-4b")
+    check((full.d_model, full.num_heads, full.num_kv_heads,
+           full.resolved_head_dim, full.d_ff, full.vocab_size,
+           full.window_size, full.rope_theta, full.rope_theta_local,
+           full.act, full.embed_scale, full.tie_embeddings, full.num_layers,
+           full.param_dtype, full.optimizer)
+          == (2560, G3_HEADS, G3_KV, G3_HEAD_DIM, 10240, 262144, G3_WINDOW,
+              1e6, 1e4, "gelu", True, True, 34, "bfloat16", "adamw"),
+          "gemma3-4b shapes")
+    cfg = dataclasses.replace(full, segments=G3_SEGMENTS)
+    n = cfg.param_count()
+    check(n == G3_PARAMS, f"gemma3-4b cut to {cfg.segments}: {n} params")
+    layers = _layers(cfg, "attn_local") + _layers(cfg, "attn")
+    print(f"[main] {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} GeGLU, vocab "
+          f"{cfg.vocab_size} tied, embed_scale, window {cfg.window_size} "
+          f"(attn_local, rope theta {cfg.rope_theta_local:g}; attn: rope "
+          f"theta {cfg.rope_theta:g}), {cfg.param_dtype}), reduced: segments "
+          f"{full.segments} -> {cfg.segments}, num_layers {full.num_layers} "
+          f"-> {cfg.num_layers}; {n} params; the quickstart's path: AdamW "
+          f"(moments {cfg.grad_accum_dtype}) on batches of {G3_BATCH} x "
+          f"{G3_SEQ} tokens, {G3_STEPS} steps, an int8 checkpoint (about "
+          f"{4 * n / 1e9:.2f} GB) after every {G3_CKPT_EVERY}th over 4 "
+          f"servers of {G3_DRAM / 2**30:.0f} GiB DRAM pinged every "
+          f"{SERVE_STABILIZE_S:g} s; then {G3_REQUESTS} x "
+          f"{G3_SERVE_BATCH} prompts of {G3_PROMPT} tokens, {G3_GEN} new "
+          f"tokens, from the restored params and the trained ones",
+          flush=True)
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    flash = (fa.flash_attention, fa.flash_attention_bwd)
+    for fn in flash:
+        fn.shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # no server is killed: the serving paths' ping cadence, so that a
+        # loop stalled by a 3.44 GB flush is not declared dead
+        bbcfg = BBConfig(num_servers=4, num_clients=4,
+                         dram_capacity=G3_DRAM,
+                         stabilize_interval=SERVE_STABILIZE_S)
+        with BurstBufferSystem(bbcfg) as bb:
+            host_step(f"{cfg.name}: train_with_checkpoints")
+            model, state, losses, mgr = qs.train_with_checkpoints(
+                cfg, bb, device, steps=G3_STEPS, ckpt_every=G3_CKPT_EVERY,
+                batch=G3_BATCH, seq=G3_SEQ, seed=SEED)
+            train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            ckpts = sorted(mgr.metrics)
+            check(ckpts == list(range(G3_CKPT_EVERY - 1, G3_STEPS,
+                                      G3_CKPT_EVERY)),
+                  f"checkpoints after steps {ckpts}")
+            host_step(f"{cfg.name}: the int8 checkpoints' flushes")
+            for step in ckpts:
+                flush_s = wait_flushed(mgr, step)
+                check(mgr.metrics[step].get("flushed"), f"the step-{step} "
+                      f"checkpoint was not durable on the PFS after "
+                      f"{flush_s} s")
+            check(not bb.manager.dead, f"servers {sorted(bb.manager.dead)} "
+                  f"were declared dead during the saves and flushes")
+            host_step(f"{cfg.name}: buffer_report")
+            report = qs.buffer_report(cfg, bb, mgr, steps=G3_STEPS)
+            names = [f"ckpt_{s:08d}{ext}" for s in ckpts
+                     for ext in ("", ".manifest")] + ["run_info.txt"]
+            check(report["manifest"] == f"arch={cfg.name} steps={G3_STEPS} "
+                  f"ckpts={ckpts}" and report["listdir"] == names
+                  and report["residency"]["dram"] > 0,
+                  f"buffer_report: {report}")
+            host_memory(f"{cfg.name} training and two int8 saves")
+            host_step(f"{cfg.name}: restore the step-{ckpts[-1]} checkpoint")
+            saved = {"params": state.params, "opt_state": state.opt_state,
+                     "data": {"step": torch.tensor(G3_STEPS,
+                                                   dtype=torch.int32,
+                                                   device=device)}}
+            _, _, fresh, _ = build(cfg, seed=SEED + 1, device=device)
+            target = {"params": fresh.params, "opt_state": fresh.opt_state,
+                      "data": {"step": torch.zeros((), dtype=torch.int32,
+                                                   device=device)}}
+            del fresh
+            t0 = time.perf_counter()
+            restored, step = mgr.restore(target)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            del target
+            metrics = {s: dict(mgr.metrics[s]) for s in ckpts}
+        del bb, mgr
+        release_host_memory()
+        check(step == ckpts[-1], f"restored step {step}, not {ckpts[-1]}")
+        check(all(torch.isfinite(torch.tensor(losses))), f"losses {losses}")
+        n_leaves, n_quant, worst = compare_restored(saved, restored)
+        print(f"[main] losses {[round(l, 4) for l in losses]}; the step-"
+              f"{step} checkpoint restored into a state from seed "
+              f"{SEED + 1}: {n_leaves} leaves ({n_quant} int8), params "
+              f"bit-exact, moments within {worst:.3f} of their int8 bound",
+              flush=True)
+
+        host_step(f"{cfg.name}: greedy_serve from the restored and the "
+                  f"trained params")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 1)
+        prompts = [torch.randint(1, cfg.vocab_size,
+                                 (G3_SERVE_BATCH, G3_PROMPT), generator=gen,
+                                 device=device)
+                   for _ in range(G3_REQUESTS)]
+        served, expected = ([qs.greedy_serve(cfg, model, params, p,
+                                             new_tokens=G3_GEN - 1)
+                             for p in prompts]
+                            for params in (restored["params"], state.params))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    by_shape = {fn.__name__: {case: fn.shapes[case[:7]] for case in (
+        G3_TRAIN_LOCAL_CASE, G3_PREFILL_LOCAL_CASE)} for fn in flash}
+    for r, (a, b) in enumerate(zip(served, expected)):
+        check(a.shape == (G3_SERVE_BATCH, G3_GEN), f"request {r}: {a.shape}")
+        check(torch.equal(a, b), f"request {r}: the restored params served "
+              f"other tokens than the trained ones")
+    # the flash forward and backward once a layer a step; the forward once
+    # a layer a prefill (twice per request: restored and trained params);
+    # quantize once an int8 leaf a save, dequantize once in the restore
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=layers * (G3_STEPS + 2 * G3_REQUESTS),
+                flash_attention_bwd=layers * G3_STEPS,
+                quantize_blockwise=n_quant * len(ckpts),
+                dequantize_blockwise=n_quant)
+    want_shape = {"flash_attention": {G3_TRAIN_LOCAL_CASE: layers * G3_STEPS,
+                                      G3_PREFILL_LOCAL_CASE:
+                                          layers * 2 * G3_REQUESTS},
+                  "flash_attention_bwd": {G3_TRAIN_LOCAL_CASE:
+                                              layers * G3_STEPS,
+                                          G3_PREFILL_LOCAL_CASE: 0}}
+    print(f"[main] launches in train -> {len(ckpts)} int8 saves -> restore "
+          f"-> serve x 2: {launches} (expected {want}); flash by shape "
+          f"(training, prefill): " + "; ".join(
+              f"{name} {list(n.values())}" for name, n in by_shape.items()),
+          flush=True)
+    check(launches == want and by_shape == want_shape
+          and launches["flash_attention_bwd"] == 16
+          and launches["quantize_blockwise"] > 0,
+          f"launch counts {launches} != {want} or by shape {by_shape}")
+    print(f"[main] {G3_REQUESTS} x {G3_SERVE_BATCH} requests served "
+          f"{G3_GEN} tokens each from the restored params, equal to the "
+          f"trained params'", flush=True)
+    print(f"[numbers] {cfg.name}: " + "; ".join(
+        f"int8 save after step {s + 1} {m['ingest_s']:.3f}s ("
+        f"{m['bytes'] / 1e9:.3f} GB incl. on-card quantize), flush "
+        f"{m.get('flush_s')}s" for s, m in metrics.items())
+        + f"; restore {restore_s:.3f}s; peak device memory "
+        f"{train_peak_gb:.2f} GB over the training", flush=True)
+    del saved, restored, served, expected
+    host_memory(f"{cfg.name} restore and serving")
+    prefill_ms, decode_tps = time_serving(cfg, model, state.params,
+                                          prompts[0], G3_GEN)
+    print(f"[numbers] {cfg.name}: prefill {prefill_ms:.2f} ms "
+          f"(B={G3_SERVE_BATCH}, S={G3_PROMPT}), decode {decode_tps:.1f} "
+          f"tok/s (B={G3_SERVE_BATCH}) from the trained params", flush=True)
+    del prompts
+    # the step timed and profiled from the path's trained state, with the
+    # optimizer train_with_checkpoints makes (no second model or state)
+    optimizer = qs.make_optimizer(cfg, peak_lr=1e-3)
+    training_numbers(cfg, device, G3_BATCH, G3_SEQ, built=(
+        optimizer, state, qs.make_train_step(cfg, model, optimizer)))
+    return launches, by_shape
+
+
+def restart_demo_path(device):
+    """Phase 3j part B, slice 14: the restart demo's path
+    (``examples/torch_restart_demo.py``) at h2o-danube-1.8b's full width
+    and phase 3f's cut (H2O_LAYERS of 24). ``restart_after_eviction``
+    trains with AdamW on batches of H2O_TRAIN_BATCH x H2O_TRAIN_SEQ tokens
+    under torch's deterministic algorithms: run A H2O_TRAIN_STEPS steps;
+    run B H2O_CKPT_AT steps, an unquantized checkpoint flushed before the
+    save returns (the demo's buffer, with H2O_TRAIN_DRAM a server and a
+    stage epoch allowed as long as ``fs.stage`` waits for it, 30 s),
+    server/0 killed (the demo's pause after it), the checkpoint evicted
+    until nothing of it is buffered, ``fs.stage``, restored into a state
+    from seed 123, and the rest of the steps: every leaf bit for bit run
+    A's, only server/0 counted dead, the flash forward and backward at
+    head dim 80 once a layer a step and no other kernel. Returns the
+    launch counts."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.configs.base import get_config
+
+    demo = _example("torch_restart_demo")
+    full = get_config("h2o-danube-1.8b")
+    cfg = dataclasses.replace(full, segments=((("attn_local",), H2O_LAYERS),))
+    check(cfg.resolved_head_dim == H2O_HEAD_DIM
+          and cfg.window_size == H2O_WINDOW
+          and (cfg.num_heads, cfg.num_kv_heads) == (H2O_HEADS, H2O_KV)
+          and cfg.optimizer == "adamw" and cfg.param_dtype == "bfloat16",
+          "h2o-danube-1.8b shapes")
+    n = cfg.param_count()
+    # the manager aborts a stage epoch after the drain's epoch timeout (12 s
+    # by default, sized for 32 MiB drain micro-epochs); the survivors
+    # re-ingest the 3.03 GB in 10 to 14 s on H100 hosts, and one host's
+    # stage was aborted at 12 s with 2.68 GB staged. The epoch gets as
+    # long as ``fs.stage`` waits for it (``StageConfig.stage_timeout_s``)
+    stage_s = demo.DEMO_BB.stage.stage_timeout_s
+    bbcfg = dataclasses.replace(
+        demo.DEMO_BB, dram_capacity=H2O_TRAIN_DRAM,
+        drain=dataclasses.replace(demo.DEMO_BB.drain,
+                                  epoch_timeout_s=stage_s))
+    print(f"[main] {cfg.name} full width as in phase 3f, reduced: "
+          f"num_layers {full.num_layers} -> {cfg.num_layers}; {n} params; "
+          f"the restart demo's path: AdamW (moments {cfg.grad_accum_dtype})"
+          f" on batches of {H2O_TRAIN_BATCH} x {H2O_TRAIN_SEQ} tokens (past "
+          f"the {cfg.window_size} window), run A {H2O_TRAIN_STEPS} steps, "
+          f"run B {H2O_CKPT_AT} + {H2O_TRAIN_STEPS - H2O_CKPT_AT} around an "
+          f"unquantized checkpoint (about {(2 + 2 * 4) * n / 1e9:.2f} GB) "
+          f"over 4 servers of {bbcfg.dram_capacity / 2**30:.0f} GiB pinged "
+          f"every {bbcfg.stabilize_interval} s, a kill, an eviction and a "
+          f"stage (its epoch and wait at most {stage_s:.0f} s)",
+          flush=True)
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        host_step(f"{cfg.name}: restart_after_eviction")
+        ref, state, info = demo.restart_after_eviction(
+            cfg, device, steps=H2O_TRAIN_STEPS, ckpt_at=H2O_CKPT_AT,
+            batch=H2O_TRAIN_BATCH, seq=H2O_TRAIN_SEQ, bb_config=bbcfg,
+            unbuffered_timeout=60.0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    release_host_memory()
+    print(f"[main] {cfg.name}: evicted residency {info['evicted']}, "
+          f"fs.stage -> {info['staged']} in {info['stage_s']:.3f}s, "
+          f"stage_stats {info['stage_stats']}, residency after the stage "
+          f"{info['residency']}; servers dead after the restore "
+          f"{info['dead']}", flush=True)
+    check(info["flushed"], "the checkpoint was not durable on the PFS")
+    check(info["evicted"]["dram"] == info["evicted"]["ssd"] == 0
+          < info["evicted"]["pfs"], f"evicted: {info['evicted']}")
+    check(info["staged"] and info["stage_stats"]["staged_bytes"] > 0
+          and info["residency"]["dram"] > 0, f"the stage: {info}")
+    check(info["dead"] == ["server/0"], f"servers counted dead after the "
+          f"restore: {info['dead']}")
+    a_leaves, b_leaves = dict(ser.tree_paths(ref)), dict(ser.tree_paths(state))
+    check(list(a_leaves) == list(b_leaves), "run B's state has other leaves")
+    for name, leaf in a_leaves.items():
+        check(torch.equal(leaf, b_leaves[name]), f"{name}: run B differs "
+              f"from the uninterrupted run A")
+    want = {name: 0 for name in launches}
+    want.update(flash_attention=H2O_LAYERS * 2 * H2O_TRAIN_STEPS,
+                flash_attention_bwd=H2O_LAYERS * 2 * H2O_TRAIN_STEPS)
+    print(f"[main] launches in run A -> run B -> save -> kill -> evict -> "
+          f"stage -> restore -> run B: {launches} (expected {want}); run B "
+          f"equals run A bit for bit in all {len(a_leaves)} leaves of "
+          f"params and AdamW state", flush=True)
+    check(launches == want and launches["flash_attention_bwd"] > 0,
+          f"launch counts {launches} != {want}")
+    print(f"[numbers] {cfg.name}: save {info['save_s']:.3f}s (ingest "
+          f"{info['ingest_s']:.3f}s of {info['bytes']} bytes = "
+          f"{info['bytes'] / 1e9:.3f} GB, then the flush to the PFS), "
+          f"stage {info['stage_s']:.3f}s ({info['stage_stats']['staged_bytes']}"
+          f" bytes), restore {info['restore_s']:.3f}s, peak device memory "
+          f"{peak_gb:.2f} GB over the path", flush=True)
+    del ref, state, a_leaves, b_leaves
+    return launches
+
+
 def main():
     # cuBLAS is deterministic only with a fixed workspace, set before CUDA
     # starts; the training path runs twice and is compared bit for bit
@@ -3288,10 +3744,9 @@ def main():
     host_memory("phase 3b", phase_end=True)
 
     # phase 3c: slice 3's path, xlstm-350m training through a server kill;
-    # depth cut as the reference's reduced() cuts it
+    # depth cut to XL_SEGMENTS
     full = get_config("xlstm-350m")
-    xl_cfg = dataclasses.replace(full, segments=tuple(
-        (unit, min(reps, 1)) for unit, reps in full.segments))
+    xl_cfg = dataclasses.replace(full, segments=XL_SEGMENTS)
     check(int(xl_cfg.d_model * xl_cfg.mlstm_proj_factor)
           // xl_cfg.num_heads == XL_HEAD_DIM
           and xl_cfg.num_heads == XL_HEADS, "xlstm-350m shapes")
@@ -3403,6 +3858,13 @@ def main():
     wh_launches, wh_train_launches, wh_by_shape = whisper_path(device)
     host_memory("phase 3i", phase_end=True)
 
+    # phase 3j: slice 14, the examples' paths at full width: the
+    # quickstart's (gemma3-4b) and the restart demo's (h2o-danube-1.8b)
+    g3_launches, g3_by_shape = quickstart_path(device)
+    host_memory("phase 3j part A")
+    h2o_train_launches = restart_demo_path(device)
+    host_memory("phase 3j", phase_end=True)
+
     host_step("the kernels line")
     rows = kernel_line(gen, {"starcoder2-3b": launches,
                              "recurrentgemma-9b": rg_launches,
@@ -3416,7 +3878,10 @@ def main():
                              "deepseek-v3-671b train": ds3_train_launches,
                              "whisper-large-v3": wh_launches,
                              "whisper-large-v3 train": wh_train_launches,
-                             "whisper-large-v3 train by shape": wh_by_shape},
+                             "whisper-large-v3 train by shape": wh_by_shape,
+                             "gemma3-4b": g3_launches,
+                             "gemma3-4b by shape": g3_by_shape,
+                             "h2o-danube-1.8b train": h2o_train_launches},
                        err, bwd_ran)
     host_memory("the kernels line", phase_end=True)
     print(f"[done] {elapsed_s():.1f}s (from the script's start, the "

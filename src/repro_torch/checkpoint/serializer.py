@@ -94,11 +94,17 @@ def default_quant_policy(path: str, leaf) -> bool:
     return head in ("opt_state",) and not path.endswith("step")
 
 
-def _host_bytes(t: torch.Tensor) -> bytes:
+def _host_bytes(t: torch.Tensor) -> memoryview:
+    """``t``'s bytes on the host, as a read-only view of one host copy of
+    the tensor: the buffer's chunks are views of it until its servers copy
+    them into their stores (no ``tobytes`` copy, and no copy of each chunk
+    sliced from one)."""
     if not t.numel():      # a zero-size leaf (Adafactor's (0,) sentinels)
-        return b""
-    return t.detach().contiguous().reshape(-1).view(torch.uint8) \
-        .cpu().numpy().tobytes()
+        return memoryview(b"")
+    flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    # the view must not alias a live CPU tensor that a later step updates
+    host = flat.cpu() if flat.is_cuda else flat.clone()
+    return memoryview(host.numpy()).toreadonly()
 
 
 def _device_bytes(payload: bytes, device) -> torch.Tensor:
@@ -121,9 +127,11 @@ def _whole(leaf: torch.Tensor) -> torch.Tensor:
     return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
 
 
-def serialize_leaf(leaf: torch.Tensor, quantize: bool) -> Tuple[bytes, dict]:
-    """Returns (payload bytes, metadata dict). A DTensor leaf is written as
-    its whole value, byte for byte the checkpoint of the plain tensor."""
+def serialize_leaf(leaf: torch.Tensor, quantize: bool
+                   ) -> Tuple[memoryview, dict]:
+    """Returns (payload, metadata dict); the payload is a read-only
+    bytes-like view. A DTensor leaf is written as its whole value, byte for
+    byte the checkpoint of the plain tensor."""
     leaf = _whole(leaf)
     meta = {"shape": list(leaf.shape), "dtype": dtype_name(leaf.dtype),
             "quant": False}
@@ -168,7 +176,7 @@ def deserialize_leaf(payload: bytes, meta: dict, device="cpu"):
 
 def serialize_leaves(tree, quant_policy: Optional[Callable] = None,
                      manifest: Optional[dict] = None
-                     ) -> Iterator[Tuple[str, bytes, dict]]:
+                     ) -> Iterator[Tuple[str, memoryview, dict]]:
     """Yields (key, payload, metadata) leaf by leaf, in manifest order, each
     payload made only when the one before it has been taken, so a caller
     that writes each away holds one leaf's bytes on the host at a time.
@@ -192,7 +200,7 @@ def serialize_tree(tree, quant_policy: Optional[Callable] = None
     """Returns ({key: payload}, manifest). Manifest records order, offsets
     (for the logical checkpoint file), and per-leaf metadata."""
     manifest: dict = {}
-    payloads = {name: data for name, data, _ in
+    payloads = {name: bytes(data) for name, data, _ in
                 serialize_leaves(tree, quant_policy, manifest)}
     return payloads, manifest
 

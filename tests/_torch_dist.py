@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from _torch_buffer import STEADY_PING_S
+
 # a collective that one rank never joins fails the test instead of hanging
 GROUP_TIMEOUT = datetime.timedelta(seconds=180)
 
@@ -172,7 +174,8 @@ def elastic_worker(rank, out_dir, cases, ref_case):
 
     def bbcfg(**kw):
         return BBConfig(num_servers=2, num_clients=2,
-                        dram_capacity=64 << 20, **kw)
+                        dram_capacity=64 << 20,
+                        stabilize_interval=STEADY_PING_S, **kw)
 
     for arch in cases:
         cfg, model, opt, state = _state(arch)

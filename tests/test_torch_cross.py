@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_buffer import STEADY_PING_S
 
 from repro.checkpoint import serializer as jser
 from repro.checkpoint.bbckpt import BBCheckpointManager as JManager
@@ -249,7 +250,8 @@ def test_reference_checkpoint_restores_through_the_buffer_and_serves():
         .astype(np.float32)
     target = map_tree(torch.zeros_like, model.init(0, device="cpu"))
     with BurstBufferSystem(BBConfig(num_servers=4, num_clients=4,
-                                    dram_capacity=64 << 20)) as bb:
+                                    dram_capacity=64 << 20,
+                                    stabilize_interval=STEADY_PING_S)) as bb:
         JManager(bb, quantize=False).save(7, {"params": jparams},
                                           blocking_flush=True)
         restored, step = BBCheckpointManager(bb, quantize=False).restore(

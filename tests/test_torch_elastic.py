@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import _torch_dist
+from _torch_buffer import STEADY_PING_S
 from _hypothesis_compat import given, settings, st
 from repro.checkpoint import serializer as jser
 from repro.checkpoint.bbckpt import BBCheckpointManager as JManager
@@ -45,7 +46,9 @@ def restored(tmp_path_factory):
     pfs = tmp / "reference_pfs"
     with JBurstBufferSystem(JBBConfig(num_servers=2, num_clients=2,
                                       dram_capacity=64 << 20,
-                                      pfs_dir=str(pfs))) as bb:
+                                      pfs_dir=str(pfs),
+                                      stabilize_interval=STEADY_PING_S)
+                            ) as bb:
         mgr = JManager(bb, quantize=False)
         mgr.save(REF_STEP, ck, blocking_flush=True)
         assert mgr.metrics[REF_STEP].get("flushed", True)

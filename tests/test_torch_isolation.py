@@ -98,3 +98,37 @@ def test_train_entry_points_refuse_cuda_without_a_card(no_cuda):
         train.build(cfg)                    # device defaults to "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--arch", "xlstm-350m", "--reduced", "--steps", "1"])
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def test_examples_load_no_jax_and_no_reference_module():
+    """Each ``examples/torch_*.py`` loaded in a fresh interpreter (its
+    ``main`` not run) brings in neither jax nor anything of the reference."""
+    examples = sorted(EXAMPLES.glob("torch_*.py"))
+    assert [p.name for p in examples] == [
+        "torch_quickstart.py", "torch_restart_demo.py", "torch_serve_lm.py",
+        "torch_train_lm.py"]
+    code = (
+        "import importlib.util, sys\n"
+        f"for path in {[str(p) for p in examples]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_example_imports_jax_or_the_reference():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                         r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
+    examples = sorted(EXAMPLES.glob("torch_*.py"))
+    assert len(examples) == 4
+    offenders = [p.name for p in examples if pattern.search(p.read_text())]
+    assert offenders == []

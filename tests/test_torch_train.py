@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_buffer import STEADY_PING_S
 
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import reduced as jreduced
@@ -322,6 +323,15 @@ def test_failure_restore_bit_exact_continuation(pair):
                                   f"diverged from the uninterrupted run"
 
 
+# Both buffers in the test below ping every STEADY_PING_S (10 s; the
+# buffers' default is 0.25 s): a false death during the reference's step-3
+# flush left a PFS copy that was not the checkpoint, which the port, over a
+# fresh buffer, read (losses 5.566888 and 5.534484 for the reference's
+# 5.538018 and 5.544424, or an empty manifest, a FileNotFoundError that
+# train_loop takes for "no checkpoint"). No server is killed here, so a
+# slow cadence loses nothing (tests/_torch_buffer.py)
+
+
 # the AdamW configs only: the reference's checkpoint manager pwrites an
 # Adafactor state's empty (0,) payloads, which put an empty chunk under the
 # key of the next leaf's first chunk, and under load the two puts land in
@@ -345,14 +355,16 @@ def test_reference_train_loop_checkpoint_resumes_in_torch(pair, tmp_path):
               quantize_ckpt=False, log_every=1)
     pfs = str(tmp_path / "pfs")
     with JBurstBufferSystem(JBBConfig(num_servers=4, num_clients=4,
-                                      dram_capacity=64 << 20,
-                                      pfs_dir=pfs)) as jbb:
+                                      dram_capacity=64 << 20, pfs_dir=pfs,
+                                      stabilize_interval=STEADY_PING_S)
+                            ) as jbb:
         jck, _, _ = jtrain_loop(jcfg, bb_system=jbb, **kw)
         kw.update(steps=6, restore=True, ckpt_every=0)
         jstate, jhist, _ = jtrain_loop(jcfg, bb_system=jbb, **kw)
     with BurstBufferSystem(BBConfig(num_servers=4, num_clients=4,
-                                    dram_capacity=64 << 20,
-                                    pfs_dir=pfs)) as bb:
+                                    dram_capacity=64 << 20, pfs_dir=pfs,
+                                    stabilize_interval=STEADY_PING_S)
+                           ) as bb:
         state, hist, mgr = train.train_loop(cfg, bb_system=bb, seed=5,
                                             device="cpu", **kw)
     assert mgr.metrics[3]["restore_s"] > 0
