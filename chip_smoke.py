@@ -114,7 +114,14 @@ Phases; any failure exits non-zero:
      ``launch/elastic.py::elastic_restore`` onto a (data=1, model=1)
      ``DeviceMesh`` in a world of one process on NCCL: every leaf a DTensor
      placed as the rule set says, its local tensor bit for bit the saved
-     state (``elastic_check``).
+     state (``elastic_check``). From that DTensor state the SPMD train step
+     (``make_train_step`` under ``use_rules``, ``launch/sharding.py``) takes
+     step ``half`` on run B's batch of that step, and the eager step takes
+     it from the same local tensors: the two new states bit for bit equal
+     in every leaf, every leaf of the SPMD one in the rule set's
+     placements, and each step launches the flash forward and backward
+     once a layer, the SPMD one through ``local_map`` (``spmd_check``, the
+     ``[spmd]`` line). 3d's expected flash counts include these two steps.
   3e. the fifth path, the training restart of slice 5: full-width
      deepseek-coder-33b (1 of 62 layers, bf16 params, Adafactor with bf16
      momentum and f32 factored second moments) through the same restart
@@ -1838,9 +1845,112 @@ def elastic_check(cfg, mgr, step, saved, like):
               f"bit for bit the saved state, every placement the rule "
               f"set's ({shard} leaves sharded, {len(leaves) - shard} "
               f"replicated); {card_line()}", flush=True)
-        del placed, local
+        del local
+        spmd_check(cfg, model, optimizer, rules, axes, placed, step + 1)
+        del placed
     finally:
         dist.destroy_process_group()
+
+
+def spmd_check(cfg, model, optimizer, rules, axes, placed, step):
+    """The SPMD train step on the card, from ``elastic_check``'s restored
+    DTensor state ``placed`` (the checkpoint run B resumed from): one step
+    of ``make_train_step`` with ``train_loop``'s accumulation (1) under
+    ``use_rules(rules)``, on the batch run B trained on at ``step`` placed
+    by ``batch_axes``; then the eager step from the same local tensors on
+    the same batch. The SPMD state's every leaf must be in the rule set's
+    placements (scalar and zero-size leaves replicated) and bit for bit
+    the eager state's (``_digests``), the losses and grad norms equal, and
+    each step must launch the flash forward and backward once a layer
+    (the SPMD step's through ``local_map``: a DTensor reaching a kernel
+    wrapper raises). Prints each step's seconds (host clock around
+    ``synchronize``; the SPMD step's first call includes DTensor's
+    sharding propagation on the host), the leaves and bytes, beside the
+    card."""
+    import torch
+    from torch.distributed.tensor import Replicate
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.sharding import (batch_axes, place_tree,
+                                             use_rules, zip_axes)
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models.common import map_tree
+    from repro_torch.runtime.train_step import TrainState, make_train_step
+
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=SC_SEQ,
+                               global_batch=SC_BATCH,
+                               enc_seq=cfg.encoder_seq,
+                               enc_dim=cfg.encoder_dim)
+    pipe.load_state_dict({**pipe.state_dict(), "step": step})
+    batch = batch_to(next(pipe), "cuda")
+    step_fn = make_train_step(cfg, model, optimizer)
+    kernels = (fa.flash_attention, fa.flash_attention_bwd)
+    layers = _layers(cfg, "attn")
+
+    def run(state, batch, rules=None):
+        before = [fn.launches for fn in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_rules(rules):
+            new, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = [fn.launches - b for fn, b in zip(kernels, before)]
+        check(ran == [layers, layers], f"the {'SPMD' if rules else 'eager'}"
+              f" step launched the flash forward and backward {ran} times, "
+              f"not once a layer ({layers})")
+        return new, metrics, secs
+
+    def rule_placements(a, leaf):
+        want = ([Replicate()] * rules.mesh.ndim
+                if leaf.dim() == 0 or leaf.numel() == 0
+                else rules.sharding(a, tuple(leaf.shape))[1])
+        return list(leaf.placements) == want
+
+    host_step(f"{cfg.name}: SPMD train step from the elastic-restored state")
+    new, metrics, spmd_s = run(TrainState(placed["params"],
+                                          placed["opt_state"]),
+                               place_tree(rules, batch_axes(batch), batch),
+                               rules)
+    held = zip_axes(rule_placements, {"params": axes.params,
+                                      "opt_state": axes.opt_state},
+                    {"params": new.params, "opt_state": new.opt_state})
+    off = [name for name, ok in ser.tree_paths(held) if not ok]
+    check(not off, f"SPMD step: {len(off)} leaves left the rule set's "
+          f"placements: {off[:8]}")
+    local = map_tree(lambda d: d.to_local(), {"params": new.params,
+                                              "opt_state": new.opt_state})
+    spmd = _digests(local["params"], local["opt_state"])
+    spmd_metrics = {k: float(v.to_local()) for k, v in metrics.items()}
+    leaves = ser.tree_paths(local)
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    del new, metrics, local
+
+    host_step(f"{cfg.name}: the eager step from the same local tensors")
+    eager_state = TrainState(*(map_tree(lambda d: d.to_local(), placed[k])
+                               for k in ("params", "opt_state")))
+    new, metrics, eager_s = run(eager_state, batch)
+    eager = _digests(new.params, new.opt_state)
+    eager_metrics = {k: float(v) for k, v in metrics.items()}
+    del new, metrics, eager_state
+    bad = [name for name, d in eager.items() if spmd.get(name) != d]
+    check(list(spmd) == list(eager) and not bad, f"SPMD step: {len(bad)} "
+          f"leaves differ from the eager step's {bad[:8]}")
+    check(spmd_metrics == eager_metrics, f"SPMD step's loss and grad norm "
+          f"{spmd_metrics} != the eager step's {eager_metrics}")
+    print(f"[spmd] {cfg.name}: the SPMD train step from the elastic-"
+          f"restored DTensor state on the (data=1, model=1) NCCL mesh, step "
+          f"{step} on run B's batch ({SC_BATCH} x {SC_SEQ} tokens): "
+          f"{spmd_s:.3f}s (first call, with DTensor's sharding "
+          f"propagation), the eager step from the same local tensors "
+          f"{eager_s:.3f}s (host clock around synchronize); loss "
+          f"{spmd_metrics['loss']:.6f}, grad norm "
+          f"{spmd_metrics['grad_norm']:.6f}; {len(leaves)} leaves, {nbytes} "
+          f"bytes ({nbytes / 1e9:.3f} GB), every leaf bit for bit the eager "
+          f"step's and in the rule set's placements; flash forward and "
+          f"backward launched {layers} + {layers} times in each step; "
+          f"{card_line()}", flush=True)
 
 
 def wait_flushed(mgr, step, timeout_s: float = 600.0):
@@ -2634,7 +2744,8 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
     kernel. Without ``timing`` the step times are the ``[train]`` lines of
     run A and the peak device memory the path's. Prints the path's
     numbers and returns the launch counts and, with ``keep_states``, run
-    A's and run B's final states (else None)."""
+    A's and run B's final states (else None). With ``elastic``, each
+    per-step kernel launches twice more, in ``spmd_check``'s two steps."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True)
@@ -2644,7 +2755,9 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
             dram_capacity=dram_capacity, int8=int8, kill=kill,
             keep_states=keep_states, elastic=elastic)
         want = {name: 0 for name in launches}
-        want.update({name: n * 2 * steps for name, n in per_step.items()})
+        # elastic_check's SPMD step and its eager twin
+        runs = 2 * steps + (2 if elastic else 0)
+        want.update({name: n * runs for name, n in per_step.items()})
         want.update(quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
         print(f"[main] launches in train -> save -> "
               f"{'kill -> ' if kill else ''}restore -> "

@@ -41,6 +41,8 @@ plays all clients round-robin (the BBFile handle does this internally).
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 import threading
 import time
@@ -56,6 +58,21 @@ from repro_torch.core.system import BurstBufferSystem
 # servers still wrote their domains found the manifest unreadable (their
 # message loops busy, its PFS copy not written yet)
 FLUSH_TIMEOUT_S = 600.0
+
+# A flush epoch counts its participants done when every one of them reported
+# its domain written or was declared dead (``core/manager.py::
+# flush_complete``). A server whose loop merely stalls past its peers' pings
+# is declared dead while the flush runs, and the epoch then completes while
+# the PFS copy lacks that server's domain. Such a step is flushed again among
+# the survivors under an epoch of its own, drawn from here (above any step a
+# training run reaches, below the buffer's drain and stage epochs), and
+# counts durable only once a flush completes without such a death. Until
+# then a marker file beside its PFS copy says the copy is not durable, and
+# ``latest_step`` does not offer it. One count for the process: two
+# managers over one buffer must not reuse an epoch, which its servers
+# ignore once closed.
+REFLUSH_EPOCHS = itertools.count(1 << 29)
+INCOMPLETE = ".incomplete"
 
 
 class BBCheckpointManager:
@@ -159,15 +176,44 @@ class BBCheckpointManager:
 
     def _flush(self, epoch: int) -> bool:
         """Flush ``epoch`` and wait until it is durable on the PFS, at most
-        ``FLUSH_TIMEOUT_S``; True if it is."""
-        return self.system.flush(epoch, timeout=FLUSH_TIMEOUT_S)
+        ``FLUSH_TIMEOUT_S``; True if it is. An epoch that completed with a
+        participant declared dead before it reported its domain written is
+        not durable yet: it is marked so on the PFS and flushed again among
+        the survivors until a flush completes with no such loss."""
+        deadline = self._clock() + FLUSH_TIMEOUT_S
+        flushed = self.system.flush(epoch, timeout=FLUSH_TIMEOUT_S)
+        if flushed and not self._lost(epoch):
+            return True
+        os.makedirs(self.system.pfs_dir, exist_ok=True)
+        marker = os.path.join(self.system.pfs_dir,
+                              f"ckpt_{epoch:08d}{INCOMPLETE}")
+        with open(marker, "w"):
+            pass
+        while flushed and self._clock() < deadline:
+            again = next(REFLUSH_EPOCHS)
+            if self.system.flush(again, timeout=deadline - self._clock()) \
+                    and not self._lost(again):
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(marker)
+                return True
+        return False
+
+    def _lost(self, epoch: int) -> set:
+        """The participants of ``epoch`` declared dead without reporting
+        their domain written: the PFS copy may lack those domains."""
+        manager = self.system.manager
+        done = manager.flush_done.get(epoch, set())
+        return {s for s in manager._flush_expected.get(epoch, ())
+                if s in manager.dead and s not in done}
 
     def _retire(self, step: int):
-        """Evict buffered epochs beyond the retention window (they are
-        durable on the PFS by now)."""
+        """Evict buffered epochs beyond the retention window that are
+        durable on the PFS. A step whose flush has not ended, or ended
+        without durability, stays buffered: the buffer holds its only whole
+        copy (a later flush's retire evicts it once durable)."""
         keep = sorted(self.saved_steps)[-self.retention:]
         for s in list(self.saved_steps):
-            if s not in keep:
+            if s not in keep and self.metrics[s].get("flushed") is True:
                 self.system.evict(f"ckpt_{s:08d}")
                 self.saved_steps.remove(s)
 
@@ -180,10 +226,12 @@ class BBCheckpointManager:
     def latest_step(self) -> Optional[int]:
         if self.saved_steps:
             return max(self.saved_steps)
-        # fall back to PFS directory listing
-        pfs = self.system.pfs_dir
-        steps = [int(f[5:13]) for f in os.listdir(pfs)
-                 if f.startswith("ckpt_") and not f.endswith(".manifest")]
+        # fall back to PFS directory listing: the steps whose copy there is
+        # not marked incomplete
+        names = set(os.listdir(self.system.pfs_dir))
+        steps = [int(f[5:]) for f in names
+                 if f.startswith("ckpt_") and len(f) == 13
+                 and f + INCOMPLETE not in names]
         return max(steps) if steps else None
 
     def restore(self, target_state, step: Optional[int] = None, *,

@@ -102,6 +102,17 @@ def build_logs() -> Dict[str, str]:
     return logs
 
 
+def local_only(what: str, *tensors) -> None:
+    """Raise if any of ``tensors`` is a DTensor: a launch takes each rank's
+    local tensors (``kernels/ops.py`` maps a kernel over the shards); a
+    DTensor's data pointer is not its shard's."""
+    from repro_torch.launch.sharding import is_dtensor
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{what}: got a DTensor; call it through "
+                        f"repro_torch.kernels.ops, which runs the kernel on "
+                        f"each rank's local shards")
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

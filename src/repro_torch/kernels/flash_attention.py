@@ -88,6 +88,7 @@ def _check(what, q, k, v, *, like_q=(), stats=()):
     (B, Sq, H, D), k / v (B, Sk, KV, D), the tensors ``like_q`` (q's shape
     and dtype) and the f32 row statistics ``stats`` (B, Sq, H); bf16 q, k,
     v and ``like_q`` 16-byte aligned; then one CUDA device."""
+    build.local_only(what, q, k, v, *like_q, *stats)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     tensors = (q, k, v, *like_q)

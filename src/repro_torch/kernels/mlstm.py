@@ -42,8 +42,9 @@ def _kernel():
 
 
 def _check(q, k, v, log_f, log_i, chunk):
-    b, s, h, d = q.shape
     tensors = (q, k, v, log_f, log_i)
+    build.local_only("mlstm kernel", *tensors)
+    b, s, h, d = q.shape
     if not (q.is_cuda and all(t.device == q.device for t in tensors)):
         raise ValueError("mlstm kernel: q, k, v, log_f, log_i must be on one "
                          "CUDA device")

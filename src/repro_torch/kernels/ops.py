@@ -12,6 +12,16 @@
   quantization are ``ref.py``.
 - An mLSTM call that carries a state (decode) is plain PyTorch on either
   device, as in the reference, which bypasses its kernel there.
+- DTensors (the SPMD step, ``launch/sharding.py``) go through
+  ``local_map``: each argument is redistributed to placements read off the
+  active rule set, and every rank runs the same call on its local shards
+  (the kernel on the card, the plain version on the CPU, under autograd on
+  both). Attention shards q's heads over the model axis when the rule set
+  does (k / v follow their heads, repeated to q's when their count does not
+  divide the axis), else q's sequence when it divides the axis (context
+  parallelism: each rank's block of queries scans the whole k / v, its
+  masks at absolute positions ``q_offset``), else only the batch. The
+  RG-LRU scan shards batch and width, the mLSTM batch and heads.
 
 Counterpart of ``repro/kernels/ops.py`` for its five kernels (flash
 attention forward, the RG-LRU scan, the chunkwise mLSTM forward, blockwise
@@ -34,8 +44,48 @@ from repro_torch.kernels import mlstm as _mlstm
 from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import rg_lru as _rg_lru
 from repro_torch.kernels import ref
+from repro_torch.launch import sharding
 
 NEG_INF = ref.NEG_INF
+
+
+def _rules():
+    """The active rule set, which a DTensor's placements are read off."""
+    rules = sharding.active_rules()
+    if rules is None:
+        raise RuntimeError("a DTensor reached a kernel outside use_rules: "
+                           "its placements come from the active rule set")
+    return rules
+
+
+def _shard_map(fn, args, axes, outs, partial_grads=()):
+    """``fn`` over the local shards of DTensor ``args`` (None entries pass
+    through): arg i redistributed to the placements of logical axes
+    ``axes[i]`` at its global shape, and output j placed by ``outs[j]``,
+    (logical axes, global shape). ``partial_grads`` names (arg index, mesh
+    axis) pairs: an arg replicated over that axis whose ranks each give
+    only a part of its gradient (summed by DTensor's ``Partial``)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    rules = _rules()
+
+    def placements(a, shape):
+        return tuple(rules.sharding(a, tuple(shape))[1])
+
+    in_pl = [None if x is None else placements(a, x.shape)
+             for x, a in zip(args, axes)]
+    grad_pl = list(in_pl)
+    names = list(rules.sizes)
+    for i, axis in partial_grads:
+        pl = list(grad_pl[i])
+        pl[names.index(axis)] = Partial()
+        grad_pl[i] = tuple(pl)
+    moved = [None if x is None else x.redistribute(rules.mesh, pl)
+             for x, pl in zip(args, in_pl)]
+    out_pl = tuple(placements(a, shape) for a, shape in outs)
+    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl),
+                     device_mesh=rules.mesh)(*moved)
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +95,9 @@ NEG_INF = ref.NEG_INF
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, chunk=512):
     """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) -> (B,Sq,H,D)."""
+    if sharding.is_dtensor(q):
+        return _flash_sharded(q, k, v, causal=causal, window=window,
+                              softcap=softcap, q_offset=q_offset, chunk=chunk)
     if q.is_cuda:
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
@@ -56,6 +109,39 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                                          q_offset, chunk)
     return flash_chunked(q, k, v, causal=causal, window=window,
                          softcap=softcap, q_offset=q_offset, chunk=chunk)
+
+
+def _flash_sharded(q, k, v, *, q_offset, **opts):
+    """The SPMD flash attention over DTensors (plans in the module
+    docstring)."""
+    rules = _rules()
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    heads = ("batch", None, "heads", None)
+    cp = ("batch", "seq", None, None)
+    q_axes = kv_axes = ("batch", None, None, None)
+    partial = ()
+    head_axis = rules.spec(heads, q.shape)[2]
+    seq_axis = rules.spec(cp, q.shape)[1]
+    if head_axis is not None:
+        q_axes = kv_axes = heads
+        if rules.spec(heads, k.shape)[2] != head_axis:
+            # each rank's q heads need their own group's k / v heads
+            g = h // kvh
+            k, v = (t[:, :, :, None].expand(b, sk, kvh, g, d)
+                    .reshape(b, sk, h, d) for t in (k, v))
+    elif seq_axis is not None and sq > 1:
+        # each rank's block of queries; its share of dk / dv is partial
+        q_axes = cp
+        coord = rules.mesh.get_coordinate()[list(rules.sizes).index(seq_axis)]
+        q_offset = q_offset + coord * (sq // rules.sizes[seq_axis])
+        partial = ((1, seq_axis), (2, seq_axis))
+
+    def local(ql, kl, vl):
+        return (flash_attention(ql, kl, vl, q_offset=q_offset, **opts),)
+
+    return _shard_map(local, (q, k, v), (q_axes, kv_axes, kv_axes),
+                      [(q_axes, q.shape)], partial)[0]
 
 
 class _PlainFlashFunction(torch.autograd.Function):
@@ -187,6 +273,11 @@ def flash_bwd_chunked(q, k, v, o, m, l, do, *, causal=True, window=0,
 def rg_lru(a, gx, h0=None):
     """h_t = a_t * h_{t-1} + gx_t. a/gx: (B,S,D) -> (h, h_last);
     differentiable in a, gx and h0."""
+    if sharding.is_dtensor(a):
+        seq, row = ("batch", None, "ffn"), ("batch", "ffn")
+        b, _, d = a.shape
+        return _shard_map(rg_lru, (a, gx, h0), (seq, seq, row),
+                          [(seq, a.shape), (row, (b, d))])
     if a.is_cuda:
         return _rg_lru.rg_lru(a, gx, h0)
     if torch.is_grad_enabled() and any(
@@ -222,6 +313,8 @@ class _PlainRGLRUFunction(torch.autograd.Function):
 
 def mlstm(q, k, v, log_f, log_i, state=None, chunk=128):
     """Chunkwise mLSTM. state: optional (C, n, m) carry (decode path)."""
+    if sharding.is_dtensor(q):
+        return _mlstm_sharded(q, k, v, log_f, log_i, state, chunk)
     if state is None and q.is_cuda:
         return _mlstm.mlstm(q.contiguous(), k.contiguous(), v.contiguous(),
                             log_f.contiguous(), log_i.contiguous(),
@@ -233,6 +326,28 @@ def mlstm(q, k, v, log_f, log_i, state=None, chunk=128):
     if state is None:
         return ref.mlstm(q, k, v, log_f, log_i)
     return ref.mlstm(q, k, v, log_f, log_i, *state)
+
+
+def _mlstm_sharded(q, k, v, log_f, log_i, state, chunk):
+    """The SPMD mLSTM over DTensors: batch and heads sharded, the state's
+    too."""
+    b, s, h, d = q.shape
+    x4, x3 = ("batch", None, "heads", None), ("batch", None, "heads")
+    c_axes, n_axes, m_axes = (("batch", "heads", None, None),
+                              ("batch", "heads", None), ("batch", "heads"))
+    c, n, m = state if state is not None else (None, None, None)
+
+    def local(ql, kl, vl, fl, il, cl, nl, ml):
+        st = None if cl is None else (cl, nl, ml)
+        hl, (c2, n2, m2) = mlstm(ql, kl, vl, fl, il, st, chunk)
+        return hl, c2, n2, m2
+
+    hs, c2, n2, m2 = _shard_map(
+        local, (q, k, v, log_f, log_i, c, n, m),
+        (x4, x4, x4, x3, x3, c_axes, n_axes, m_axes),
+        [(x4, q.shape), (c_axes, (b, h, d, d)), (n_axes, (b, h, d)),
+         (m_axes, (b, h))])
+    return hs, (c2, n2, m2)
 
 
 def _cumsum(x):

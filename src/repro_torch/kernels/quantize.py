@@ -41,6 +41,7 @@ def _check_block(n: int, block: int):
 def quantize_blockwise(x, *, block=2048):
     """x: flat contiguous float32 (N,) on CUDA, N % block == 0 ->
     (q int8 (N,), scales float32 (N / block,))."""
+    build.local_only("quantize_blockwise kernel", x)
     if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 1 \
             or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("quantize_blockwise kernel: needs a flat, "
@@ -64,6 +65,7 @@ def quantize_blockwise(x, *, block=2048):
 def dequantize_blockwise(q, scale, *, block=2048, out_dtype=torch.float32):
     """q: int8 (N,), scale: float32 (N / block,) on one CUDA device ->
     (N,) in ``out_dtype`` (float32 or bfloat16)."""
+    build.local_only("dequantize_blockwise kernel", q, scale)
     if not (q.is_cuda and scale.device == q.device):
         raise ValueError("dequantize_blockwise kernel: q and scale must be "
                          "on one CUDA device")

@@ -150,6 +150,7 @@ def _check(what, a, *, like_a=(), rows=()):
     and dtype, ``rows`` (B, D) of a's dtype (None: absent); contiguous, on
     one CUDA device."""
     tensors = [t for t in (a, *like_a, *rows) if t is not None]
+    build.local_only(what, *tensors)
     if not all(t.is_cuda and t.device == a.device for t in tensors):
         raise ValueError(f"{what}: inputs must be on one CUDA device")
     if a.dtype not in _DTYPES or any(t.dtype != a.dtype for t in tensors):

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.sharding import RuleSet, zip_axes
+from repro_torch.launch.sharding import RuleSet, place_tree
 
 
 def degraded_mesh(total_hosts: int, lost_hosts: int, *,
@@ -51,19 +51,9 @@ def elastic_restore(mgr, cfg, model, optimizer, mesh, target_state,
     restored, ck_step = mgr.restore(target_state, step)
     tree = {"params": restored["params"], "opt_state": restored["opt_state"]}
     del restored
-    placed = zip_axes(lambda a, leaf: _place(rules, a, leaf),
-                      {"params": axes.params, "opt_state": axes.opt_state},
-                      tree)
+    placed = place_tree(rules, {"params": axes.params,
+                                "opt_state": axes.opt_state}, tree)
     return placed, ck_step
-
-
-def _place(rules: RuleSet, axes, leaf):
-    from torch.distributed.tensor import Replicate, distribute_tensor
-    if leaf.dim() == 0 or leaf.numel() == 0:
-        placements = [Replicate() for _ in rules.sizes]
-    else:
-        _, placements = rules.sharding(axes, tuple(leaf.shape))
-    return distribute_tensor(leaf, rules.mesh, placements)
 
 
 def rebalance_domains(flush_throughput: Dict[str, float],

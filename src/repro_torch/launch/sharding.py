@@ -24,14 +24,24 @@ Baseline rule table:
   experts      -> (data, model) one expert a device (deepseek) or
                   data          one expert a row (llama4)
 
-Model code runs eagerly on local tensors: ``constrain`` is a no-op unless
-a rule set is active, and then redistributes only DTensors.
+Model code runs eagerly, on plain tensors or on DTensors: ``constrain`` is
+a no-op unless a rule set is active, and then redistributes only DTensors.
+The SPMD train step is the port's eager ``make_train_step`` over a state
+and a batch that ``place_tree`` placed as DTensors by the rule set, run
+under ``use_rules``: every op goes through DTensor's sharding propagation,
+the reference's constraint sites redistribute as its
+``with_sharding_constraint`` does, a tensor made inside model or
+optimizer code joins the mesh through ``replicate_like``, the kernels run
+on each rank's local shards (``kernels/ops.py`` through ``local_map``),
+and the optimizer hands back each leaf in its input's placements
+(``placed_like``).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import math
+import sys
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.launch.mesh import mesh_sizes
@@ -172,13 +182,83 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
     shape); a plain tensor is a rank's local value and comes back as it
     is."""
     rules = _ACTIVE.get()
-    if rules is None:
-        return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
+    if rules is None or not is_dtensor(x):
         return x
     _, placements = rules.sharding(logical_axes, tuple(x.shape))
     return x.redistribute(rules.mesh, placements)
+
+
+# ---------------------------------------------------------------------------
+# DTensors of the SPMD step: placing a state and a batch, and the tensors
+# model and optimizer code make or hand back
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor, without importing DTensor's module (no
+    DTensor exists before something imported it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def replicated(mesh) -> list:
+    """The placements of a tensor whole on every rank of ``mesh``."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
+
+
+def whole(x):
+    """A DTensor ``x`` replicated on every rank of its mesh; anything else
+    (a plain tensor, None) as it is."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, replicated(x.device_mesh))
+
+
+def replicate_like(t, ref):
+    """``t``, a plain tensor made inside model or optimizer code, as a
+    replicated DTensor on ``ref``'s mesh when ``ref`` is a DTensor (every
+    rank makes the same ``t``); else ``t`` itself."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, ref.device_mesh,
+                              replicated(ref.device_mesh), run_check=False)
+
+
+def batch_like(t, ref):
+    """``t`` (B, ...), made inside model code, as a DTensor split over the
+    mesh dims that split ``ref``'s batch dim 0 and replicated over the
+    others, when ``ref`` is a DTensor; else ``t`` itself."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import Replicate
+    return replicate_like(t, ref).redistribute(
+        ref.device_mesh, [p if p.is_shard(0) else Replicate()
+                          for p in ref.placements])
+
+
+def placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements when both are DTensors
+    (an update's leaf back in its input leaf's placements); else ``x``."""
+    if not is_dtensor(x) or list(x.placements) == list(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def place_tree(rules: RuleSet, axes_tree, tree):
+    """Every leaf of ``tree`` as a DTensor on the rule set's mesh with the
+    placements of the matching leaf of ``axes_tree`` (scalar and zero-size
+    leaves replicated): a train state with ``state_logical_axes``, a batch
+    with ``batch_axes`` (the port's ``in_shardings``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(axes, leaf):
+        placements = (replicated(rules.mesh)
+                      if leaf.dim() == 0 or leaf.numel() == 0
+                      else rules.sharding(axes, tuple(leaf.shape))[1])
+        return distribute_tensor(leaf, rules.mesh, placements)
+
+    return zip_axes(place, axes_tree, tree)
 
 
 # ---------------------------------------------------------------------------

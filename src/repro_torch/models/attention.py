@@ -1,8 +1,9 @@
 """Attention: GQA/MQA/MHA self-attention (global / sliding-window),
 cross-attention.
 
-Counterpart of ``repro/models/attention.py`` without the mesh-only
-context-parallel constraint. Training/prefill runs the fused
+Counterpart of ``repro/models/attention.py``, with its context-parallel
+constraint on q (``_cp_eligible``) under an active rule set. Training/prefill
+runs the fused
 flash-attention op from ``repro_torch.kernels.ops`` (the CUDA kernel on the
 card, the chunked online softmax on the CPU); cross-attention runs it
 non-causally over the encoder / vision states. Decode attends one query
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import sharding
 from repro_torch.models.common import P, apply_rope, cfg_dtype
 
 NEG_INF = -1e30
@@ -68,6 +70,21 @@ def _out_proj(cfg, p, o):
 # train / prefill
 
 
+def _cp_eligible(cfg, seq: int) -> bool:
+    """Context parallelism for archs whose head count cannot shard over the
+    model axis (e.g. gemma3's 8 heads on a 16-wide axis): shard q over the
+    sequence instead, so attention splits n ways instead of running
+    replicated on every model rank. K / V stay replicated (kv_heads are
+    unsharded), so each rank scans the full K / V against its query block;
+    causal and window masks use absolute positions (the block's
+    ``q_offset``) and need no ring exchange. As the reference decides it."""
+    rules = sharding.active_rules()
+    if rules is None:
+        return False
+    m = rules.sizes.get("model", 1)
+    return cfg.num_heads % m != 0 and seq % m == 0 and seq > 1
+
+
 def self_attention(cfg, p, x, positions, *, window: int = 0,
                    causal: bool = True, rope_theta: Optional[float] = None):
     """x: (B, S, d); positions: (B, S) int. window=0 -> global."""
@@ -76,6 +93,8 @@ def self_attention(cfg, p, x, positions, *, window: int = 0,
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
+    if _cp_eligible(cfg, q.shape[1]):
+        q = sharding.constrain(q, ("batch", "seq", None, None))
     o = kops.flash_attention(q, k, v, causal=causal, window=window,
                              softcap=cfg.logit_softcap)
     return _out_proj(cfg, p, o)

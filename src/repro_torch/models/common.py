@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import replicate_like, whole
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -150,7 +152,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
     Half-split (not interleaved) rotation, computed in f32."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)    # (half,)
+    freqs = replicate_like(rope_freqs(x.shape[-1], theta, x.device), x)
     angles = positions[..., :, None].float() * freqs    # (..., seq, half)
     cos = torch.cos(angles)[..., :, None, :]            # (..., seq, 1, half)
     sin = torch.sin(angles)[..., :, None, :]
@@ -195,14 +197,18 @@ def embed_descs(cfg):
 
 
 def embed_tokens(cfg, p, tokens, positions=None):
-    x = p["tokens"].to(cfg_dtype(cfg))[tokens]
+    # over DTensors the lookup takes the ids whole on every rank, so that
+    # its backward (an accumulating index_put) scatters a whole gradient:
+    # torch 2.11's DTensor rule for index_put fails on batch-split values
+    x = p["tokens"].to(cfg_dtype(cfg))[whole(tokens)]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * replicate_like(torch.tensor(math.sqrt(cfg.d_model),
+                                            dtype=x.dtype, device=x.device),
+                               x)
     if cfg.pos_embed == "learned":
         if positions is None:
             raise ValueError("learned position embeddings need positions")
-        x = x + p["positions"].to(x.dtype)[positions]
+        x = x + p["positions"].to(x.dtype)[whole(positions)]
     return x
 
 

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -363,9 +364,12 @@ def _layer(tree, r: int):
     return map_tree(lambda a: a[r], tree)
 
 
-def _positions(b: int, s: int, start: int, device):
-    return torch.arange(start, start + s, dtype=torch.int32,
-                        device=device).expand(b, s)
+def _positions(like, s: int, start: int):
+    """Positions start .. start+s-1 for every row of ``like`` (B, ...): a
+    DTensor in the batch's placement when ``like`` is one."""
+    pos = torch.arange(start, start + s, dtype=torch.int32,
+                       device=like.device).expand(like.shape[0], s)
+    return sharding.batch_like(pos, like)
 
 
 def _encode(cfg, params, enc_input):
@@ -377,10 +381,11 @@ def _encode(cfg, params, enc_input):
     x = torch.matmul(enc_input.to(dt), params["enc_proj"].to(dt))
     if not cfg.num_encoder_layers:
         return x
-    b, s = x.shape[:2]
-    table = torch.tensor(sincos_positions(s, cfg.d_model), device=x.device)
+    s = x.shape[1]
+    table = sharding.replicate_like(
+        torch.tensor(sincos_positions(s, cfg.d_model), device=x.device), x)
     x = x + table.to(x.dtype)[None]
-    ext = {"positions": _positions(b, s, 0, x.device), "ctx": None}
+    ext = {"positions": _positions(x, s, 0), "ctx": None}
     for r in range(cfg.num_encoder_layers):
         x = KINDS["enc"].apply(cfg, _layer(params["encoder"], r)["0"], x,
                                ext)
@@ -396,15 +401,18 @@ def _trunk(cfg, params, tokens, enc_input):
     """The embedding and every segment's layers over tokens (B, S): the
     residual stream (B, S, d) before the final norm, and the layers' ext
     (positions 0 .. S-1, the encoded context)."""
-    b, s = tokens.shape
-    ext = _ext(cfg, params, _positions(b, s, 0, tokens.device), enc_input)
+    ext = _ext(cfg, params, _positions(tokens, tokens.shape[1], 0),
+               enc_input)
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
+    x = sharding.constrain(x, ("batch", None, None))
     for i, (unit, reps) in enumerate(cfg.segments):
         seg_params = params["segments"][f"seg{i}"]
         for r in range(reps):
             p_layer = _layer(seg_params, r)
             for j, kname in enumerate(unit):
                 x = KINDS[kname].apply(cfg, p_layer[str(j)], x, ext)
+            # the reference's constraint on each scan step's carry
+            x = sharding.constrain(x, ("batch", None, None))
     return x, ext
 
 
@@ -470,8 +478,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, enc_input=None):
     filled, so decode encodes nothing: ``enc_input`` is taken for the
     reference's signature, whose decode encodes it and leaves the result
     unread."""
-    b = tokens.shape[0]
-    ext = {"positions": _positions(b, 1, pos, tokens.device), "pos": pos}
+    ext = {"positions": _positions(tokens, 1, pos), "pos": pos}
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
     x = _run_cached(cfg, params, cache, x, ext, "decode")
     x = apply_norm(cfg, params["final_norm"], x)
@@ -482,8 +489,8 @@ def prefill(cfg, params, cache, tokens, enc_input=None):
     """Fill caches for tokens[0..S) in place (cross layers: the context
     encoded from ``enc_input`` into their K / V cache); returns
     last-position logits (B, 1, V) and the cache."""
-    b, s = tokens.shape
-    ext = _ext(cfg, params, _positions(b, s, 0, tokens.device), enc_input)
+    ext = _ext(cfg, params, _positions(tokens, tokens.shape[1], 0),
+               enc_input)
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
     x = _run_cached(cfg, params, cache, x, ext, "prefill")
     x = apply_norm(cfg, params["final_norm"], x[:, -1:])

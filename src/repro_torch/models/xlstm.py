@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.sharding import replicate_like
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import P, apply_norm, cfg_dtype, norm_descs
 
@@ -41,8 +42,8 @@ def _causal_conv(p, x, state=None):
     x's dtype in index order, from Python's 0, as the reference does."""
     w = p["kernel"].shape[0]
     if state is None:
-        state = torch.zeros((x.shape[0], w - 1, x.shape[2]), dtype=x.dtype,
-                            device=x.device)
+        state = replicate_like(torch.zeros((x.shape[0], w - 1, x.shape[2]),
+                                           dtype=x.dtype, device=x.device), x)
     xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * p["kernel"][i].to(x.dtype)
             for i in range(w))

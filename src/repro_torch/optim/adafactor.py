@@ -29,6 +29,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.launch.sharding import placed_like
 from repro_torch.models.common import (DTYPES, map_tree, tree_leaves, unzip,
                                       zip_map)
 
@@ -113,7 +114,8 @@ class Adafactor:
             if self.weight_decay and p.dim() >= 2:
                 u = u + self.weight_decay * p.float()
             p_new = p.float() - lr * u
-            return p_new.to(p.dtype), vr_new, vc_new, m_out
+            return (placed_like(p_new.to(p.dtype), p), placed_like(vr_new, vr),
+                    placed_like(vc_new, vc), placed_like(m_out, m))
 
         p_new, vr_new, vc_new, m_new = unzip(zip_map(
             upd, grads, state.vr, state.vc, state.m, params), 4)

@@ -13,6 +13,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.launch.sharding import placed_like, replicate_like
 from repro_torch.models.common import (DTYPES, map_tree, tree_leaves, unzip,
                                       zip_map)
 
@@ -50,8 +51,10 @@ class AdamW:
         lr = self.lr(step)
         b1, b2 = self.b1, self.b2
         t = step.float()
-        c1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
-        c2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+        c1 = 1.0 - torch.pow(replicate_like(
+            torch.tensor(b1, device=t.device), t), t)
+        c2 = 1.0 - torch.pow(replicate_like(
+            torch.tensor(b2, device=t.device), t), t)
         dt = DTYPES[self.state_dtype]
 
         def upd(g, m, v, p):
@@ -64,7 +67,8 @@ class AdamW:
             if self.weight_decay and p.dim() >= 2:  # no decay on norms/bias
                 delta = delta + self.weight_decay * p.float()
             p_new = p.float() - lr * delta
-            return p_new.to(p.dtype), m_new.to(dt), v_new.to(dt)
+            return (placed_like(p_new.to(p.dtype), p),
+                    placed_like(m_new.to(dt), m), placed_like(v_new.to(dt), v))
 
         p_new, m_new, v_new = unzip(zip_map(upd, grads, state.m, state.v,
                                             params), 3)

@@ -11,11 +11,20 @@ multi-token-prediction loss at weight 0.3, as the reference does. A
 config with an encoder or a cross source (whisper-large-v3,
 llama-3.2-vision-90b) takes the batch's float ``enc_input`` (B, encoder_seq,
 encoder_dim), sliced into microbatches with the tokens. Eager: there is no
-jit, and the state is replaced, not donated. ``state_logical_axes`` gives
-the train state's logical axes, which ``launch/sharding.py`` resolves to
-placements on a mesh (``launch/elastic.py`` restores onto one); the
-reference's sharding constraints on the microbatches are for an SPMD
-compiler, and the eager step has none.
+jit, and the state is replaced, not donated.
+
+The same step is the SPMD step, the counterpart of the reference's
+``jax.jit(make_train_step(...), in_shardings=(state, batch),
+out_shardings=(state, None))`` under ``use_rules`` (``launch/dryrun.py``):
+given a state placed as DTensors with ``state_logical_axes`` and a batch
+placed with ``batch_axes`` (``launch/sharding.py::place_tree``), and run
+under ``use_rules(rules)``, every op runs on DTensors. The reference's
+constraints on the stacked and the single microbatches redistribute them
+(``_micro_slices``), the loss's mean is summed over the ranks' rows
+(``_sharded_cross_entropy``), the gradient norm reduces through DTensor's
+partial sums, and the optimizer hands each leaf back in its input leaf's
+placements; the loss and grad norm come back replicated. On a mesh of one
+device the step is the eager step bit for bit.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.launch import sharding
 from repro_torch.models import transformer
 from repro_torch.models.common import (DTYPES, map_tree, padded_vocab,
                                       tree_leaves, zip_map)
@@ -91,7 +101,36 @@ def state_logical_axes(cfg, model, optimizer):
 def cross_entropy(logits, labels, vocab_size: int):
     """logits: (B,S,Vp) any dtype; labels: (B,S) int64. f32 stable xent
     over the padded vocabulary, as the reference computes it."""
+    if sharding.is_dtensor(logits):
+        return _sharded_cross_entropy(logits, labels)
     return _CrossEntropy.apply(logits, labels)
+
+
+def _sharded_cross_entropy(logits, labels):
+    """The loss over DTensor logits: each rank takes its rows (the batch's
+    placement) over the whole vocabulary; its share of the mean is its
+    rows' mean times its share of the rows, and the shares are summed over
+    the mesh dims that split the rows (DTensor's ``Partial``) into a
+    replicated loss. Each rank's backward then gives its rows the gradient
+    the whole version gives them."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    rules = sharding.active_rules()
+    rows = logits.shape[0]
+    axes = ("batch",) + (None,) * (logits.dim() - 1)
+    _, l_pl = rules.sharding(axes, tuple(logits.shape))
+    _, y_pl = rules.sharding(axes[:-1], tuple(labels.shape))
+    out_pl = [Partial() if p.is_shard() else Replicate() for p in l_pl]
+
+    def local(lg, y):
+        return (_CrossEntropy.apply(lg, y) * (lg.shape[0] / rows),)
+
+    loss, = local_map(local, out_placements=(tuple(out_pl),),
+                      in_placements=(tuple(l_pl), tuple(y_pl)),
+                      device_mesh=rules.mesh)(
+        logits.redistribute(rules.mesh, l_pl),
+        labels.redistribute(rules.mesh, y_pl))
+    return loss.redistribute(rules.mesh, sharding.replicated(rules.mesh))
 
 
 # rows of the logits whose f32 copy the loss holds at once. Autograd through
@@ -150,6 +189,23 @@ def _fill(t, it):
     return next(it)
 
 
+def _micro_slices(batch, accum_steps: int, mb: int):
+    """Microbatch i holds rows i*mb .. (i+1)*mb - 1 of each batch tensor.
+    Under a rule set, the stack of microbatches keeps its microbatch dim,
+    not the accumulation dim, on the data axes, and each microbatch is
+    constrained over "batch", as the reference constrains them. (A DTensor
+    batch is gathered before it is split: its shards need not divide into
+    whole microbatches.)"""
+    def stack(x):
+        return sharding.constrain(
+            sharding.whole(x).reshape((accum_steps, mb) + x.shape[1:]),
+            (None, "batch") + (None,) * (x.dim() - 1))
+
+    stacked = {k: stack(x) for k, x in batch.items()}
+    return [{k: sharding.constrain(x[i], ("batch",) + (None,) * (x.dim() - 2))
+             for k, x in stacked.items()} for i in range(accum_steps)]
+
+
 def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,
                     clip_norm: float = 1.0):
     vp = padded_vocab(cfg)
@@ -177,11 +233,9 @@ def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state.params)]
         params = _like(state.params, leaves)
-        micros = [{k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
-                  for i in range(accum_steps)]
+        micros = _micro_slices(batch, accum_steps, mb)
         if accum_steps > 1:
-            grads = [torch.zeros(p.shape, dtype=adt, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=adt) for p in leaves]
             loss = 0.0
             for micro in micros:
                 l_i, g_i = loss_and_grads(leaves, params, micro)
