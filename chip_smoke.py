@@ -121,7 +121,17 @@ Phases; any failure exits non-zero:
      in every leaf, every leaf of the SPMD one in the rule set's
      placements, and each step launches the flash forward and backward
      once a layer, the SPMD one through ``local_map`` (``spmd_check``, the
-     ``[spmd]`` line). 3d's expected flash counts include these two steps.
+     ``[spmd]`` line). From the same restored DTensor params, slice 1's
+     traffic (4 prompts of 512 tokens from the seed, 32 decode steps) is
+     served through ``make_prefill`` / ``make_decode_step`` with the rule
+     set (the cache placed by ``cache_axes``, the tokens by
+     ``batch_axes``), then eagerly from the same local tensors: every
+     step's logits and greedy token bit for bit the eager run's, every
+     cache leaf in the rule set's placements after the prefill and the
+     last decode step, the flash forward once a layer in each prefill (the
+     SPMD one through ``local_map``) and never in decode
+     (``spmd_serve_check``, the ``[spmd-serve]`` line). 3d's expected
+     flash counts include these two steps and these two prefills.
   3e. the fifth path, the training restart of slice 5: full-width
      deepseek-coder-33b (1 of 62 layers, bf16 params, Adafactor with bf16
      momentum and f32 factored second moments) through the same restart
@@ -1847,6 +1857,9 @@ def elastic_check(cfg, mgr, step, saved, like):
               f"replicated); {card_line()}", flush=True)
         del local
         spmd_check(cfg, model, optimizer, rules, axes, placed, step + 1)
+        host_memory(f"{cfg.name}: the SPMD train step's check")
+        spmd_serve_check(cfg, model, rules, placed["params"])
+        host_memory(f"{cfg.name}: the SPMD serving check")
         del placed
     finally:
         dist.destroy_process_group()
@@ -1950,6 +1963,127 @@ def spmd_check(cfg, model, optimizer, rules, axes, placed, step):
           f"bytes ({nbytes / 1e9:.3f} GB), every leaf bit for bit the eager "
           f"step's and in the rule set's placements; flash forward and "
           f"backward launched {layers} + {layers} times in each step; "
+          f"{card_line()}", flush=True)
+
+
+def spmd_serve_check(cfg, model, rules, params):
+    """Sharded serving on the card, from ``elastic_check``'s restored
+    DTensor params (placed by ``param_axes``): slice 1's traffic, one batch
+    of BATCH prompts of PROMPT tokens drawn from the seed and GEN decode
+    steps, through ``make_prefill`` / ``make_decode_step`` with the rule
+    set (the cache from ``init_cache(..., rules=)``, placed by
+    ``cache_axes``; the tokens placed by ``batch_axes``); then the same
+    prefill and decode steps eagerly from the same local tensors, each
+    step fed the SPMD run's greedy token. Every step's logits must be bit
+    for bit the eager run's, the greedy tokens equal, every cache leaf in
+    the rule set's placements after the prefill and after the last decode
+    step (and its local tensor the eager cache bit for bit), and the flash
+    forward must launch once a layer in each prefill (the SPMD one through
+    ``local_map``) and not at all in decode. Prints the prefill's seconds
+    (the SPMD one's first call includes DTensor's sharding propagation on
+    the host) and the decode's tokens/s (host clock around
+    ``synchronize``) of both runs, beside the card."""
+    import torch
+    from repro_torch.checkpoint import serializer as ser
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.sharding import cache_axes, zip_axes
+    from repro_torch.models.common import map_tree
+    from repro_torch.runtime.serve_step import (greedy_token,
+                                                make_decode_step,
+                                                make_prefill)
+
+    layers = _layers(cfg, "attn")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device="cuda")
+
+    def placed_as_rules(cache):
+        held = zip_axes(lambda a, leaf: list(leaf.placements)
+                        == rules.sharding(a, tuple(leaf.shape))[1],
+                        cache_axes(cfg, cache), cache)
+        return [name for name, ok in ser.tree_paths(held) if not ok]
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    def serve(params, cache, forced=None, sharded=False):
+        """Prefill, then GEN decode steps (each on the step's own greedy
+        token, or on ``forced``'s): (logits, tokens, cache, prefill
+        seconds, decode seconds)."""
+        on = rules if sharded else None
+        prefill = make_prefill(cfg, model, on)
+        decode = make_decode_step(cfg, model, on)
+        logits_all, toks = [], []
+        with torch.no_grad():
+            before = fa.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, cache, prompts)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            ran = fa.flash_attention.launches - before
+            check(ran == layers, f"the {'SPMD' if sharded else 'eager'} "
+                  f"prefill launched the flash forward {ran} times, not "
+                  f"once a layer ({layers})")
+            if sharded:
+                off = placed_as_rules(cache)
+                check(not off, f"SPMD prefill: {len(off)} cache leaves "
+                      f"left the rule set's placements: {off[:8]}")
+            before = fa.flash_attention.launches
+            t0 = time.perf_counter()
+            for i in range(GEN + 1):
+                logits_all.append(local(logits))
+                toks.append(local(greedy_token(cfg, logits)))
+                if i == GEN:
+                    break
+                tok = toks[-1] if forced is None else forced[i]
+                logits, cache = decode(params, cache, tok, PROMPT + i)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            ran = fa.flash_attention.launches - before
+            check(ran == 0, f"the {'SPMD' if sharded else 'eager'} decode "
+                  f"launched the flash forward {ran} times, not 0")
+        return logits_all, toks, cache, prefill_s, decode_s
+
+    host_step(f"{cfg.name}: SPMD serving from the elastic-restored params")
+    spmd = serve(params, model.init_cache(BATCH, PROMPT + GEN,
+                                          device="cuda", rules=rules),
+                 sharded=True)
+    off = placed_as_rules(spmd[2])
+    check(not off, f"SPMD decode: {len(off)} cache leaves left the rule "
+          f"set's placements: {off[:8]}")
+    host_step(f"{cfg.name}: eager serving from the same local tensors")
+    eager = serve(map_tree(local, params),
+                  model.init_cache(BATCH, PROMPT + GEN, device="cuda"),
+                  forced=spmd[1])
+    bad = [i for i, (a, b) in enumerate(zip(spmd[0], eager[0]))
+           if not torch.equal(a, b)]
+    check(not bad, f"SPMD serving: the logits of steps {bad[:8]} differ "
+          f"from the eager run's")
+    check(all(torch.equal(a, b) for a, b in zip(spmd[1], eager[1])),
+          "SPMD serving: the greedy tokens differ from the eager run's")
+    bad = [name for (name, a), (_, b) in zip(ser.tree_paths(spmd[2]),
+                                             ser.tree_paths(eager[2]))
+           if not torch.equal(local(a), b)]
+    check(not bad, f"SPMD serving: cache leaves {bad[:8]} differ from the "
+          f"eager run's")
+    check(all(torch.isfinite(t).all() for t in spmd[0]),
+          "SPMD serving: non-finite logits")
+    tokens = BATCH * GEN
+    print(f"[spmd-serve] {cfg.name}: sharded serving from the elastic-"
+          f"restored DTensor params on the (data=1, model=1) NCCL mesh, "
+          f"{BATCH} prompts of {PROMPT} tokens and {GEN} decode steps (cache "
+          f"of {PROMPT + GEN} placed by cache_axes, tokens by batch_axes): "
+          f"prefill {spmd[3]:.3f}s (first call, with DTensor's sharding "
+          f"propagation), decode {tokens / spmd[4]:.1f} tok/s "
+          f"({spmd[4]:.3f}s); the eager run from the same local tensors: "
+          f"prefill {eager[3]:.3f}s, decode {tokens / eager[4]:.1f} tok/s "
+          f"({eager[4]:.3f}s) (host clock around synchronize); all "
+          f"{GEN + 1} steps' logits and greedy tokens bit for bit the eager "
+          f"run's, every cache leaf in the rule set's placements after the "
+          f"prefill and the last decode step; flash forward launched "
+          f"{layers} time(s) in each prefill and 0 in decode; "
           f"{card_line()}", flush=True)
 
 
@@ -2745,7 +2879,9 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
     run A and the peak device memory the path's. Prints the path's
     numbers and returns the launch counts and, with ``keep_states``, run
     A's and run B's final states (else None). With ``elastic``, each
-    per-step kernel launches twice more, in ``spmd_check``'s two steps."""
+    per-step kernel launches twice more, in ``spmd_check``'s two steps, and
+    the flash forward twice more again, in ``spmd_serve_check``'s two
+    prefills."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True)
@@ -2758,6 +2894,9 @@ def training_path(cfg, device, *, batch, seq, steps, dram_capacity,
         # elastic_check's SPMD step and its eager twin
         runs = 2 * steps + (2 if elastic else 0)
         want.update({name: n * runs for name, n in per_step.items()})
+        if elastic and "flash_attention" in per_step:
+            # spmd_serve_check's two prefills, once a layer each
+            want["flash_attention"] += 2 * per_step["flash_attention"]
         want.update(quantize_blockwise=n_quant, dequantize_blockwise=n_quant)
         print(f"[main] launches in train -> save -> "
               f"{'kill -> ' if kill else ''}restore -> "

@@ -58,7 +58,7 @@ def _rules():
     return rules
 
 
-def _shard_map(fn, args, axes, outs, partial_grads=()):
+def shard_map(fn, args, axes, outs, partial_grads=()):
     """``fn`` over the local shards of DTensor ``args`` (None entries pass
     through): arg i redistributed to the placements of logical axes
     ``axes[i]`` at its global shape, and output j placed by ``outs[j]``,
@@ -140,8 +140,8 @@ def _flash_sharded(q, k, v, *, q_offset, **opts):
     def local(ql, kl, vl):
         return (flash_attention(ql, kl, vl, q_offset=q_offset, **opts),)
 
-    return _shard_map(local, (q, k, v), (q_axes, kv_axes, kv_axes),
-                      [(q_axes, q.shape)], partial)[0]
+    return shard_map(local, (q, k, v), (q_axes, kv_axes, kv_axes),
+                     [(q_axes, q.shape)], partial)[0]
 
 
 class _PlainFlashFunction(torch.autograd.Function):
@@ -276,8 +276,8 @@ def rg_lru(a, gx, h0=None):
     if sharding.is_dtensor(a):
         seq, row = ("batch", None, "ffn"), ("batch", "ffn")
         b, _, d = a.shape
-        return _shard_map(rg_lru, (a, gx, h0), (seq, seq, row),
-                          [(seq, a.shape), (row, (b, d))])
+        return shard_map(rg_lru, (a, gx, h0), (seq, seq, row),
+                         [(seq, a.shape), (row, (b, d))])
     if a.is_cuda:
         return _rg_lru.rg_lru(a, gx, h0)
     if torch.is_grad_enabled() and any(
@@ -342,7 +342,7 @@ def _mlstm_sharded(q, k, v, log_f, log_i, state, chunk):
         hl, (c2, n2, m2) = mlstm(ql, kl, vl, fl, il, st, chunk)
         return hl, c2, n2, m2
 
-    hs, c2, n2, m2 = _shard_map(
+    hs, c2, n2, m2 = shard_map(
         local, (q, k, v, log_f, log_i, c, n, m),
         (x4, x4, x4, x3, x3, c_axes, n_axes, m_axes),
         [(x4, q.shape), (c_axes, (b, h, d, d)), (n_axes, (b, h, d)),

@@ -34,7 +34,12 @@ the reference's constraint sites redistribute as its
 optimizer code joins the mesh through ``replicate_like``, the kernels run
 on each rank's local shards (``kernels/ops.py`` through ``local_map``),
 and the optimizer hands back each leaf in its input's placements
-(``placed_like``).
+(``placed_like``). Sharded serving (``runtime/serve_step.py``) takes params
+placed by ``param_axes`` and a cache made by ``zeros_tree`` with
+``cache_axes``, whose sequence dim the model axis splits: a cache write
+goes into each rank's own block (``write_slice``), and the step returns
+the cache in those placements (``place_tree`` of a placed tree moves
+nothing).
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ import contextvars
 import math
 import sys
 from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.launch.mesh import mesh_sizes
 
@@ -249,16 +256,90 @@ def place_tree(rules: RuleSet, axes_tree, tree):
     """Every leaf of ``tree`` as a DTensor on the rule set's mesh with the
     placements of the matching leaf of ``axes_tree`` (scalar and zero-size
     leaves replicated): a train state with ``state_logical_axes``, a batch
-    with ``batch_axes`` (the port's ``in_shardings``)."""
+    with ``batch_axes`` (the port's ``in_shardings``). A leaf that is a
+    DTensor already is redistributed, which leaves one in those placements
+    as it is: a serving step's cache by ``cache_axes`` (the reference's
+    ``out_shardings``)."""
     from torch.distributed.tensor import distribute_tensor
 
     def place(axes, leaf):
         placements = (replicated(rules.mesh)
                       if leaf.dim() == 0 or leaf.numel() == 0
                       else rules.sharding(axes, tuple(leaf.shape))[1])
+        if is_dtensor(leaf):
+            return leaf.redistribute(rules.mesh, placements)
         return distribute_tensor(leaf, rules.mesh, placements)
 
     return zip_axes(place, axes_tree, tree)
+
+
+def zeros_tree(rules: RuleSet, axes_tree, tree):
+    """DTensors of zeros with the shapes and dtypes of ``tree``'s leaves
+    (tensors on the ``meta`` device will do), in the placements of
+    ``axes_tree``'s leaves, on the mesh's device type: each rank allocates
+    only its own block, and nothing is sent (a serving cache by
+    ``cache_axes``)."""
+    from torch.distributed.tensor import DTensor
+
+    def zeros(axes, leaf):
+        placements = rules.sharding(axes, tuple(leaf.shape))[1]
+        _, sizes = local_block(rules.mesh, placements, leaf.shape)
+        local = torch.zeros(sizes, dtype=leaf.dtype,
+                            device=rules.mesh.device_type)
+        return DTensor.from_local(local, rules.mesh, placements,
+                                  run_check=False, shape=leaf.shape,
+                                  stride=torch.empty(leaf.shape,
+                                                     device="meta").stride())
+
+    return zip_axes(zeros, axes_tree, tree)
+
+
+# ---------------------------------------------------------------------------
+# a rank's block of a DTensor, and writes into it (serving's caches)
+
+
+def local_block(mesh, placements, shape) -> Tuple[list, list]:
+    """(offsets, sizes): the block of a tensor of global ``shape`` that
+    this rank of ``mesh`` holds under ``placements`` (``Shard`` and
+    ``Replicate``), split as ``torch.chunk`` splits, mesh dims in order."""
+    offsets, sizes = [0] * len(shape), list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            d, k = p.dim, mesh.size(i)
+            chunk = -(-sizes[d] // k)
+            start = min(coord[i] * chunk, sizes[d])
+            offsets[d] += start
+            sizes[d] = min(chunk, sizes[d] - start)
+    return offsets, sizes
+
+
+def write_slice(dst, src, dim: int, start: int):
+    """``dst``'s slice ``start .. start + src.shape[dim]`` along ``dim``
+    set to ``src`` (cast to ``dst``'s dtype), in place; returns ``dst``.
+    A DTensor ``dst`` keeps its placements: ``src`` is brought to them,
+    whole along ``dim``, and each rank copies only the part of the slice
+    that falls in its own block of ``dim``, so no rank gathers ``dst`` and
+    every other element stays as it was. ``src`` is a DTensor on
+    ``dst``'s mesh when ``dst`` is one."""
+    n = src.shape[dim]
+    if n == 0:
+        return dst
+    if not is_dtensor(dst):
+        dst.narrow(dim, start, n).copy_(src)
+        return dst
+    from torch.distributed.tensor import Replicate
+    src = src.redistribute(dst.device_mesh,
+                           [Replicate() if p.is_shard(dim) else p
+                            for p in dst.placements])
+    offsets, sizes = local_block(dst.device_mesh, dst.placements, dst.shape)
+    lo = max(start, offsets[dim])
+    hi = min(start + n, offsets[dim] + sizes[dim])
+    if lo < hi:
+        with torch.no_grad():
+            dst.to_local().narrow(dim, lo - offsets[dim], hi - lo).copy_(
+                src.to_local().narrow(dim, lo - start, hi - lo))
+    return dst
 
 
 # ---------------------------------------------------------------------------

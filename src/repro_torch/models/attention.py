@@ -13,7 +13,11 @@ does in plain jnp.
 
 Unlike the reference, whose caches are immutable arrays (donated to the
 jitted decode step), the port writes the new token's K/V into the cache
-tensors in place.
+tensors in place. Under a rule set the caches are DTensors split by
+``launch/sharding.py::cache_axes`` (the sequence over the model axis):
+each rank writes only its own block (``sharding.write_slice``), and the
+attention over the cache gathers K / V along the sequence
+(``_cache_attend``).
 """
 from __future__ import annotations
 
@@ -107,9 +111,13 @@ def cross_attention(cfg, p, x, ctx):
 
 def cross_attend(cfg, p, x, k, v):
     """Cross-attention of x over the context's projected k / v (B, S_ctx,
-    KV, D): the flash kernel, non-causal, no window, no softcap."""
-    o = kops.flash_attention(_proj(x, p["wq"]), k, v, causal=False,
-                             window=0, softcap=0.0)
+    KV, D): the flash kernel, non-causal, no window, no softcap; q split
+    over its sequence where ``_cp_eligible``, as the reference's
+    ``cross_attention`` does."""
+    q = _proj(x, p["wq"])
+    if _cp_eligible(cfg, q.shape[1]):
+        q = sharding.constrain(q, ("batch", "seq", None, None))
+    o = kops.flash_attention(q, k, v, causal=False, window=0, softcap=0.0)
     return _out_proj(cfg, p, o)
 
 
@@ -146,14 +154,15 @@ def decode_self_attention(cfg, p, x, cache, pos: int, *, window: int = 0,
     q, k_new, v_new = _project_qkv(cfg, p, x)
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     if cfg.pos_embed == "rope":
-        pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        pos_b = sharding.batch_like(
+            torch.full((b, 1), pos, dtype=torch.int32, device=x.device), x)
         q = apply_rope(q, pos_b, theta)
         k_new = apply_rope(k_new, pos_b, theta)
 
     size = cache["k"].shape[1]
     slot = pos % size
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    sharding.write_slice(cache["k"], k_new, 1, slot)
+    sharding.write_slice(cache["v"], v_new, 1, slot)
 
     # absolute position held by each ring slot after the write
     idx = torch.arange(size, device=x.device)
@@ -163,6 +172,7 @@ def decode_self_attention(cfg, p, x, cache, pos: int, *, window: int = 0,
     valid = (abs_pos >= 0) & (abs_pos < n_written)
     if window:
         valid &= abs_pos >= (pos - window + 1)
+    valid = sharding.replicate_like(valid, q)
 
     o = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
     return _out_proj(cfg, p, o), cache
@@ -174,8 +184,9 @@ def decode_cross_attention(cfg, p, x, cache):
     decode profile reads for the cache attention's device time."""
     with torch.profiler.record_function("xattn_cache"):
         q = _proj(x, p["wq"])
-        valid = torch.ones(cache["k"].shape[1], dtype=torch.bool,
-                           device=x.device)
+        valid = sharding.replicate_like(
+            torch.ones(cache["k"].shape[1], dtype=torch.bool,
+                       device=x.device), q)
         o = _cache_attend(cfg, q, cache["k"], cache["v"], valid)
         return _out_proj(cfg, p, o)
 
@@ -186,7 +197,15 @@ def prefill_cross_cache(cfg, p, ctx):
 
 
 def _cache_attend(cfg, q, k, v, valid):
-    """q: (B,1,H,D); k/v: (B,S,KV,D); valid: (S,) bool. f32 softmax."""
+    """q: (B,1,H,D); k/v: (B,S,KV,D); valid: (S,) bool. f32 softmax. On
+    DTensors each rank attends its own rows of the batch in plain torch
+    (``kops.shard_map``): a cache split over S is gathered along S, and
+    q's heads (which need not divide into KV groups on each rank) too."""
+    if sharding.is_dtensor(q):
+        rows = ("batch", None, None, None)
+        return kops.shard_map(lambda *a: (_cache_attend(cfg, *a),),
+                              (q, k, v, valid), (rows, rows, rows, (None,)),
+                              [(rows, q.shape)])[0]
     b, _, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh

@@ -19,7 +19,7 @@ class Model:
     init: Callable                      # (seed, device="cuda") -> params
     param_axes: Callable                # () -> logical axes tree
     forward: Callable                   # (params, tokens, enc_input=None) -> logits
-    init_cache: Callable                # (batch, max_seq, device="cuda") -> cache
+    init_cache: Callable                # (batch, max_seq, device, rules)
     decode_step: Callable               # (params, cache, tokens, pos, enc_input=None)
     prefill: Callable                   # (params, cache, tokens, enc_input=None)
 
@@ -38,9 +38,9 @@ def build_model(cfg) -> Model:
         param_axes=lambda: transformer.param_axes(cfg),
         forward=lambda params, tokens, enc_input=None: transformer.forward(
             cfg, params, tokens, enc_input),
-        init_cache=lambda batch, max_seq, device="cuda":
+        init_cache=lambda batch, max_seq, device="cuda", rules=None:
             transformer.init_cache(cfg, batch, max_seq,
-                                   resolve_device(device)),
+                                   resolve_device(device), rules),
         decode_step=lambda params, cache, tokens, pos, enc_input=None:
             transformer.decode_step(cfg, params, cache, tokens, pos,
                                     enc_input),

@@ -13,7 +13,8 @@ carry the forward kernel then also writes, and ``ref.rg_lru_bwd`` on the
 CPU; the gates' gradients are autograd's.
 
 Unlike the reference, whose caches are immutable arrays, the decode path
-writes the new state into the cache tensors it is given.
+writes the new state into the cache tensors it is given (into each rank's
+own block of a DTensor cache, ``sharding.write_slice``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import sharding
 from repro_torch.models.common import P, apply_norm, cfg_dtype, norm_descs
 from repro_torch.models.xlstm import _causal_conv, _conv_descs
 
@@ -83,6 +85,6 @@ def decode_rglru_block(cfg, p, x, cache):
     a, gx, gate, new_conv = _recurrence_inputs(cfg, p, xn, cache["conv"])
     h, h_last = kops.rg_lru(a, gx, cache["h"])
     out = x + torch.matmul(h * gate, p["w_out"].to(x.dtype))
-    cache["h"].copy_(h_last)
-    cache["conv"].copy_(new_conv)
+    sharding.write_slice(cache["h"], h_last, 0, 0)
+    sharding.write_slice(cache["conv"], new_conv, 0, 0)
     return out, cache

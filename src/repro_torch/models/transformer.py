@@ -23,7 +23,12 @@ does; only ``forward_with_mtp`` (training) reads it, so serving never
 touches it.
 
 Caches are updated in place: ``prefill`` and ``decode_step`` write into the
-cache tensors they are given and return the same cache.
+cache tensors they are given and return the same cache. Under a rule set
+(``launch/sharding.py::use_rules``) they take params placed by
+``param_axes`` and a cache placed by ``cache_axes`` as DTensors (the
+reference's ``in_shardings`` in ``launch/dryrun.py``): each write goes into
+a rank's own block of the cache (``sharding.write_slice``), and the cache
+comes back in ``cache_axes``'s placements (its ``out_shardings``).
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from repro_torch.models.common import (P, apply_norm, apply_rope, cfg_dtype,
                                        cfg_param_dtype, embed_descs,
                                        embed_tokens, init_tree, map_tree,
                                        norm_descs, sincos_positions,
-                                       stack_descs, unembed)
+                                       stack_descs, tree_leaves, unembed)
 from repro_torch.models.mlp import apply_mlp, mlp_descs
 
 
@@ -119,21 +124,23 @@ def _make_attn_kind(*, window_attr=None, rope=True, local_theta=False,
         if rope and cfg.pos_embed == "rope":
             q = apply_rope(q, ext["positions"], _theta(cfg))
             k = apply_rope(k, ext["positions"], _theta(cfg))
+        if attn._cp_eligible(cfg, q.shape[1]):
+            q = sharding.constrain(q, ("batch", "seq", None, None))
         o = kops.flash_attention(q, k, v, causal=causal,
                                  window=_window(cfg),
                                  softcap=cfg.logit_softcap)
         x = _ffn(cfg, p, x + attn._out_proj(cfg, p["attn"], o), ffn)
         # write the (possibly windowed) tail of k/v into the ring cache
-        kc, vc = cache["kv"]["k"], cache["kv"]["v"]
-        buf, s = kc.shape[1], k.shape[1]
-        if s >= buf:
-            # ring alignment: slot of token t is t % buf
-            shift = s % buf
-            kc.copy_(torch.roll(k[:, -buf:], shift, dims=1))
-            vc.copy_(torch.roll(v[:, -buf:], shift, dims=1))
-        else:
-            kc[:, :s] = k
-            vc[:, :s] = v
+        buf, s = cache["kv"]["k"].shape[1], k.shape[1]
+        for c, t in ((cache["kv"]["k"], k), (cache["kv"]["v"], v)):
+            if s >= buf:
+                # ring alignment: slot of token t is t % buf, so the tail's
+                # last ``shift`` tokens wrap round to slots 0 .. shift - 1
+                shift, tail = s % buf, t[:, s - buf:]
+                sharding.write_slice(c, tail[:, buf - shift:], 1, 0)
+                sharding.write_slice(c, tail[:, :buf - shift], 1, shift)
+            else:
+                sharding.write_slice(c, t, 1, 0)
         return x, cache
 
     return Kind(descs, apply, init_cache, decode, prefill)
@@ -271,14 +278,14 @@ def _cross_prefill(cfg, p, x, cache, ext):
     if cfg.pos_embed == "rope":
         q = apply_rope(q, ext["positions"], cfg.rope_theta)
         k = apply_rope(k, ext["positions"], cfg.rope_theta)
+    if attn._cp_eligible(cfg, q.shape[1]):
+        q = sharding.constrain(q, ("batch", "seq", None, None))
     o = kops.flash_attention(q, k, v, causal=True)
     x = x + attn._out_proj(cfg, p["attn"], o)
-    s = k.shape[1]
-    cache["kv"]["k"][:, :s] = k
-    cache["kv"]["v"][:, :s] = v
     xk, xv = attn.prefill_cross_cache(cfg, p["xattn"], ext["ctx"])
-    cache["xkv"]["k"].copy_(xk)
-    cache["xkv"]["v"].copy_(xv)
+    for c, t in ((cache["kv"]["k"], k), (cache["kv"]["v"], v),
+                 (cache["xkv"]["k"], xk), (cache["xkv"]["v"], xv)):
+        sharding.write_slice(c, t, 1, 0)
     h = apply_norm(cfg, p["norm_c"], x)
     x = x + attn.cross_attend(cfg, p["xattn"], h, xk, xv)
     h = apply_norm(cfg, p["norm2"], x)
@@ -448,7 +455,14 @@ def forward_with_mtp(cfg, params, tokens, enc_input=None):
     return logits, mtp_logits
 
 
-def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
+def init_cache(cfg, batch: int, max_seq: int, device="cuda", rules=None):
+    """The decode cache of every layer, zeros, stacked by segment. With a
+    rule set, DTensors placed by ``cache_axes`` on its mesh (``device`` is
+    then the mesh's), each rank allocating only its own block."""
+    if rules is not None:
+        shapes = init_cache(cfg, batch, max_seq, "meta")
+        return sharding.zeros_tree(rules, sharding.cache_axes(cfg, shapes),
+                                   shapes)
     cache: Dict[str, Any] = {}
     for i, (unit, reps) in enumerate(cfg.segments):
         seg = {str(j): KINDS[k].init_cache(cfg, batch, max_seq, device)
@@ -456,6 +470,18 @@ def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
         cache[f"seg{i}"] = map_tree(
             lambda a: a.expand((reps,) + a.shape).clone(), seg)
     return cache
+
+
+def _placed_cache(cfg, cache):
+    """The cache as a serving step returns it: under a rule set, a DTensor
+    cache in ``cache_axes``'s placements (the reference's
+    ``out_shardings``; the in-place writes keep them, so this moves
+    nothing unless a caller placed it otherwise); else as it is."""
+    rules = sharding.active_rules()
+    if rules is None or not any(sharding.is_dtensor(a)
+                                for a in tree_leaves(cache)):
+        return cache
+    return sharding.place_tree(rules, sharding.cache_axes(cfg, cache), cache)
 
 
 def _run_cached(cfg, params, cache, x, ext, method: str):
@@ -482,7 +508,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, enc_input=None):
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
     x = _run_cached(cfg, params, cache, x, ext, "decode")
     x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(cfg, params["embed"], x), cache
+    return unembed(cfg, params["embed"], x), _placed_cache(cfg, cache)
 
 
 def prefill(cfg, params, cache, tokens, enc_input=None):
@@ -494,4 +520,4 @@ def prefill(cfg, params, cache, tokens, enc_input=None):
     x = embed_tokens(cfg, params["embed"], tokens, ext["positions"])
     x = _run_cached(cfg, params, cache, x, ext, "prefill")
     x = apply_norm(cfg, params["final_norm"], x[:, -1:])
-    return unembed(cfg, params["embed"], x), cache
+    return unembed(cfg, params["embed"], x), _placed_cache(cfg, cache)

@@ -17,7 +17,8 @@ The same step is the SPMD step, the counterpart of the reference's
 ``jax.jit(make_train_step(...), in_shardings=(state, batch),
 out_shardings=(state, None))`` under ``use_rules`` (``launch/dryrun.py``):
 given a state placed as DTensors with ``state_logical_axes`` and a batch
-placed with ``batch_axes`` (``launch/sharding.py::place_tree``), and run
+placed with ``batch_axes`` (``launch/sharding.py::place_tree``; an
+``enc_input`` split over the batch like the tokens), and run
 under ``use_rules(rules)``, every op runs on DTensors. The reference's
 constraints on the stacked and the single microbatches redistribute them
 (``_micro_slices``), the loss's mean is summed over the ranks' rows

@@ -21,24 +21,24 @@ import torch
 import torch.distributed as dist
 
 ARCHS = ("starcoder2-3b", "gemma3-4b", "deepseek-coder-33b",
-         "recurrentgemma-9b")
+         "recurrentgemma-9b", "whisper-large-v3")
 MESHES = ((2, 2), (4, 1), (1, 4))
-# gemma3 on a model axis of 4: 2 heads over 1 KV head, which the axis does
-# not divide, so attention takes the context-parallel branch
-CP_OVERRIDES = {"num_heads": 2, "num_kv_heads": 1}
-CP_CASE = "gemma3-4b@1x4"
+# 2 heads on a model axis of 4, which does not divide them, so attention
+# takes the context-parallel branch (whisper's cross-attention too)
+CP_OVERRIDES = {"gemma3-4b@1x4": {"num_heads": 2, "num_kv_heads": 1},
+                "whisper-large-v3@1x4": {"num_heads": 2, "num_kv_heads": 2}}
+CP_CASES = tuple(sorted(CP_OVERRIDES))
 BATCH, SEQ, ACCUM = 4, 32, 2
 
 
 def cases():
     """[(name, arch, config overrides, mesh shape)]: every config on every
-    mesh, gemma3's (1, 4) case the context-parallel one."""
+    mesh, gemma3's and whisper's (1, 4) cases the context-parallel ones."""
     out = []
     for arch in ARCHS:
         for shape in MESHES:
             name = f"{arch}@{shape[0]}x{shape[1]}"
-            out.append((name, arch, CP_OVERRIDES if name == CP_CASE else {},
-                        shape))
+            out.append((name, arch, CP_OVERRIDES.get(name, {}), shape))
     return out
 
 
@@ -46,6 +46,14 @@ def tokens(name: str, vocab: int) -> np.ndarray:
     """The case's (B, S + 1) tokens, from a numpy seed of its config."""
     seed = sum(name.split("@")[0].encode())
     return np.random.default_rng(seed).integers(0, vocab, (BATCH, SEQ + 1))
+
+
+def frames(name: str, encoder_seq: int, encoder_dim: int) -> np.ndarray:
+    """The case's (B, encoder_seq, encoder_dim) float64 ``enc_input``
+    (whisper's frames), from a numpy seed of its config."""
+    seed = sum(name.split("@")[0].encode()) + 1
+    return np.random.default_rng(seed).standard_normal(
+        (BATCH, encoder_seq, encoder_dim))
 
 
 def _load_reference(path, timeout=600.0):
@@ -79,9 +87,15 @@ def _build(arch, overrides, ref_state):
 
 
 def _batch(name, cfg):
+    """The case's batch; with an encoder, its ``enc_input`` in f32 (placed
+    by ``batch_axes`` with the tokens)."""
     tok = torch.from_numpy(tokens(name, cfg.vocab_size))
-    return {"inputs": tok[:, :-1].contiguous(),
-            "labels": tok[:, 1:].contiguous()}
+    batch = {"inputs": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    if cfg.encoder_seq:
+        batch["enc_input"] = torch.from_numpy(
+            frames(name, cfg.encoder_seq, cfg.encoder_dim)).float()
+    return batch
 
 
 def _placement_str(placements) -> list:
@@ -104,11 +118,12 @@ def _shard_block(d) -> dict:
 
 class _Recorder:
     """Wraps ``sharding.constrain`` and ``ops.flash_attention`` in this
-    process: each constraint's logical axes, global shape and resulting
-    placements, and each local flash call's q length, heads, KV heads and
-    ``q_offset``."""
+    process: each constraint's logical axes, global shape, resulting
+    placements and site (the calling function's name), and each local
+    flash call's q length, heads, KV heads and ``q_offset``."""
 
     def __init__(self):
+        import sys
         from repro_torch.kernels import ops
         from repro_torch.launch import sharding
         self.constraints, self.flash = [], []
@@ -119,7 +134,8 @@ class _Recorder:
             if sharding.is_dtensor(out):
                 self.constraints.append({
                     "axes": list(logical_axes), "shape": list(out.shape),
-                    "placements": _placement_str(out.placements)})
+                    "placements": _placement_str(out.placements),
+                    "site": sys._getframe(1).f_code.co_name})
             return out
 
         def recorded_flash(q, k, v, **kw):

@@ -9,6 +9,7 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.checkpoint.bbckpt import BBCheckpointManager as JManager
@@ -115,3 +116,39 @@ def test_serve_cli_runs_reduced_h2o_danube_on_cpu(capsys):
                 "--requests", "1"])
     out = capsys.readouterr().out
     assert "[serve] request-batch 0: (2, 4)" in out
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "starcoder2-3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_greedy_token_masks_the_padding_out_of_place(arch, dtype):
+    """``greedy_token`` on plain tensors, bit for bit the reference's and
+    the former in-place mask over a clone: whisper's vocab 51866 padded to
+    51968 (the mask decides rows whose largest logit is a padding column)
+    and starcoder2-3b's unpadded 49152; a tie (the first index wins), a
+    row whose real logits are all -inf; the logits are left as they
+    were."""
+    from repro.runtime.serve_step import greedy_token as jgreedy_token
+    from repro_torch.models.common import padded_vocab
+    from repro_torch.runtime.serve_step import greedy_token
+    cfg = get_config(arch)
+    v, vp = cfg.vocab_size, padded_vocab(cfg)
+    assert (vp != v) == (arch == "whisper-large-v3")
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.standard_normal((5, 1, vp))
+                              .astype(np.float32))
+    logits[0, 0, vp - 1] = 100.0          # a padding column (if any) on top
+    logits[1, 0, 7] = logits[1, 0, 9] = 50.0          # a tie
+    logits[2, 0, :v] = -torch.inf
+    logits = logits.to(getattr(torch, dtype))
+    before = logits.clone()
+    got = greedy_token(cfg, logits)
+    former = logits.clone()
+    former[..., v:] = -torch.inf
+    assert torch.equal(logits, before)
+    assert got.dtype == torch.int32 and got.shape == (5, 1)
+    assert torch.equal(got, torch.argmax(former, dim=-1).to(torch.int32))
+    want = jgreedy_token(cfg, jnp.asarray(logits.float().numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[1, 0] == 7 and got[2, 0] == 0
+    if vp != v:
+        assert got[0, 0] < v

@@ -9,9 +9,12 @@ out_shardings=(state, None))`` under ``use_rules`` on a mesh it builds with
 initial state through the checkpoint format, places it and the batch with
 the rule set and runs its ``make_train_step`` under ``use_rules``. Cases:
 reduced starcoder2-3b (AdamW), gemma3-4b (``attn_local`` and ``attn``),
-deepseek-coder-33b (Adafactor) and recurrentgemma-9b (the RG-LRU kernel's
-kind) on the (2, 2), (4, 1) and (1, 4) meshes; gemma3's (1, 4) case has 2
-heads over 1 KV head and takes the context-parallel branch.
+deepseek-coder-33b (Adafactor), recurrentgemma-9b (the RG-LRU kernel's
+kind) and whisper-large-v3 (``enc`` and ``cross``, its ``enc_input``
+placed by ``batch_axes`` with the tokens) on the (2, 2), (4, 1) and (1, 4)
+meshes; gemma3's (1, 4) case has 2 heads over 1 KV head and whisper's 2
+over 2, and both take the context-parallel branch (whisper's in its
+encoder's self-attention, its decoder's and its cross-attention).
 
 (a) The loss to rtol 1e-5. The gradient norm and every state leaf within
     the larger of the issue's bound, max(1e-5, 2 x the reference's own
@@ -52,6 +55,7 @@ import _torch_dist
 import _torch_spmd
 from repro.launch import sharding as jsharding
 from repro_torch.checkpoint import serializer as ser
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.launch.sharding import RuleSet
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -64,7 +68,12 @@ LOSS_RTOL, FLOOR = 1e-5, 1e-5
 SITES = {(None, "batch", None): "the stacked microbatches",
          ("batch", None): "each microbatch",
          ("batch", None, None): "the trunk's embedding and residual",
+         (None, "batch", None, None): "the stacked microbatches' enc_input",
          ("batch", "seq", None, None): "attention's q (context parallel)"}
+CP = ("batch", "seq", None, None)
+# the functions that constrain q in each context-parallel case's step
+CP_SITES = {"gemma3-4b@1x4": {"self_attention"},
+            "whisper-large-v3@1x4": {"self_attention", "cross_attend"}}
 
 _REF = """
     import dataclasses, json, os, pickle, sys
@@ -109,6 +118,8 @@ _REF = """
         params = state.params
         tok = np.asarray(spec["tokens"][name])
         batch = {"inputs": tok[:, :-1], "labels": tok[:, 1:]}
+        if name in spec["frames"]:
+            batch["enc_input"] = np.asarray(spec["frames"][name], np.float32)
         step = make_train_step(cfg, model, opt, accum_steps=accum)
         key = json.dumps([arch, overrides])
         if key not in plains:
@@ -176,7 +187,14 @@ def _reference(out_path, cases, init_path=""):
     initial state there."""
     tokens = {name: _torch_spmd.tokens(name, 128).tolist()
               for name, *_ in cases}
+    frames = {}
+    for name, arch, _, _ in cases:
+        cfg = reduced(get_config(arch))
+        if cfg.encoder_seq:
+            frames[name] = _torch_spmd.frames(name, cfg.encoder_seq,
+                                              cfg.encoder_dim).tolist()
     spec = json.dumps({"cases": _jsonable(cases), "tokens": tokens,
+                       "frames": frames,
                        "accum": _torch_spmd.ACCUM, "eps": NOISE_EPS,
                        "runs": NOISE_RUNS, "init_path": str(init_path),
                        "init_cases": _jsonable(CASES)})
@@ -263,7 +281,8 @@ def test_sharded_step_matches_reference(runs, name):
     cases, as fractions of their tolerance: leaves 0.55 (gemma3-4b@1x4's
     ``opt_state/.m/embed/tokens``, 6.6e-5 against the noise bound) and
     0.50 (deepseek-coder-33b's bf16 momentum: one bf16 step, twice the
-    reference's own difference); grad norms
+    reference's own difference), whisper-large-v3's at most 0.23
+    (2.3e-6 against 1e-5); grad norms 0.32 (whisper-large-v3@1x4) and
     0.30 (gemma3-4b@2x2, 3.5e-3 relative against its noise bound), and
     the other configs' within 1e-5 of the reference (at most 8.9e-6,
     recurrentgemma-9b@2x2); losses within 1.8e-7."""
@@ -338,9 +357,11 @@ def test_constraint_placements_match_reference_spec(runs, name):
         want = [str(p) for p in prules.placements(spec)]
         assert rec["placements"] == want, rec
     seen = {tuple(r["axes"]) for r in records}
-    expected = set(SITES) - {("batch", "seq", None, None)}
-    if name == _torch_spmd.CP_CASE:
-        expected = set(SITES)
+    expected = set(SITES)
+    if name not in _torch_spmd.CP_CASES:
+        expected.discard(CP)
+    if not name.startswith("whisper-large-v3"):
+        expected.discard((None, "batch", None, None))
     assert seen == expected
     # every microbatch: the embedding and one residual a unit's repeat
     assert sum(tuple(r["axes"]) == ("batch", None, None)
@@ -348,19 +369,28 @@ def test_constraint_placements_match_reference_spec(runs, name):
 
 
 def test_context_parallel_case_takes_the_branch(runs):
-    """gemma3-4b@1x4: q is constrained over the sequence, and each rank's
-    flash calls take its quarter of the queries at its absolute offset."""
-    for r in runs["ranks"]:
-        got = r[_torch_spmd.CP_CASE]
-        assert any(c["axes"] == ["batch", "seq", None, None]
-                   for c in got["constraints"])
-        block = _torch_spmd.SEQ // 4
-        assert got["flash"]
-        assert {(f["sq"], f["q_offset"]) for f in got["flash"]} == \
-            {(block, got["coord"][1] * block)}
+    """gemma3-4b@1x4 and whisper-large-v3@1x4: q is constrained over the
+    sequence at each site of the step (whisper's cross-attention too), and
+    each rank's flash calls take its quarter of the queries at its
+    absolute offset (whisper's encoder: a quarter of its 16 frames)."""
+    for name in _torch_spmd.CP_CASES:
+        for r in runs["ranks"]:
+            got = r[name]
+            assert {c["site"] for c in got["constraints"]
+                    if tuple(c["axes"]) == CP} == CP_SITES[name]
+            block, m = _torch_spmd.SEQ // 4, got["coord"][1]
+            want = {(block, m * block)}
+            if name.startswith("whisper-large-v3"):
+                want.add((16 // 4, m * 16 // 4))
+            assert got["flash"]
+            assert {(f["sq"], f["q_offset"]) for f in got["flash"]} == want
     for name in NAMES:
-        if name != _torch_spmd.CP_CASE:
-            assert all(f["q_offset"] == 0 and f["sq"] == _torch_spmd.SEQ
+        if name not in _torch_spmd.CP_CASES:
+            # whole sequences: the tokens (and whisper's 16 frames)
+            whole = {_torch_spmd.SEQ}
+            if name.startswith("whisper-large-v3"):
+                whole.add(16)
+            assert all(f["q_offset"] == 0 and f["sq"] in whole
                        for f in runs["ranks"][0][name]["flash"])
 
 
