@@ -103,7 +103,12 @@ Phases; any failure exits non-zero:
      takes 2, checkpoints through the burst buffer unquantized, loses
      server/0, restores from the replicas into a state drawn from another
      seed and takes 2 more. B's params and moments must equal A's bit for
-     bit. The mLSTM kernel runs in every forward (1 launch a step).
+     bit. The mLSTM kernel runs in every forward (1 launch a step). From
+     run B's state placed on a (data=1, model=1) mesh (the NCCL world of
+     one that ``main`` starts before 3c and destroys after 3h), the SPMD
+     train step takes one step of 2 x 256 tokens and the eager step the
+     same from the same local tensors, bit for bit, the mLSTM forward once
+     each (``spmd_check_from``, the ``[spmd]`` line).
   3d. the fourth path, the training restart of slice 4: full-width
      starcoder2-3b (1 of 30 layers, bf16 params, f32 AdamW moments) through
      the same restart at 4 + 4 steps of 8 x 2048 tokens; the flash forward
@@ -151,7 +156,11 @@ Phases; any failure exits non-zero:
      window); the flash forward runs once a layer in every prefill, the MoE
      FFN (sorted capacity dispatch, expert products in torch.bmm) in every
      prefill and decode step; a profile of the prefill splits the MoE FFN's
-     device time into its products and its dispatch and combine.
+     device time into its products and its dispatch and combine. From the
+     restored params placed on the (1, 1) mesh, 4 prompts of 512 tokens
+     and 8 decode steps are served sharded (the MoE's dense dispatch under
+     the rule set), then eagerly, bit for bit, the flash forward once a
+     layer a prefill (``spmd_serve_check_from``, ``[spmd-serve]``).
   3h. the eighth and tenth paths, slices 8 and 10: deepseek-v3-671b at full
      width (MLA: 128 heads, q_lora 1536, kv_lora 512, q / k head dim
      128 + 64, v 128; 256 experts at top-8 and a shared expert; vocab
@@ -164,14 +173,17 @@ Phases; any failure exits non-zero:
      backward at head dim 192 run twice a step (the trunk's layer over
      2048 tokens, the MTP layer over 2047); then 3 request batches of 4
      prompts of 4096 tokens are served from run B's params and from run
-     A's (equal tokens). Part B: one mla_dense
+     A's (equal tokens), and from run B's state the SPMD train step and
+     its eager twin take one step of 2 x 1024 tokens, bit for bit, the
+     flash forward and backward twice each (``[spmd]``). Part B: one
+     mla_dense
      and one mla_moe layer without MTP (13.94 G params, 27.89 GB) are drawn
      on the card from the seed (a restart through the buffer would hold
      3 x 27.89 GB on the card and ~4.75 x on the host), serve the same
      requests twice (equal tokens), and the absorbed decode is held
      against the reconstructed path (``absorbed_decode_check``); the
      flash forward at head dim 192 runs once an MLA layer in every
-     prefill.
+     prefill. The params then serve sharded as in 3g (``[spmd-serve]``).
   3i. the ninth and eleventh paths, slices 9 and 11: whisper-large-v3 at
      full width (d_model 1280, 20 heads at head dim 64), depth cut to 2 enc
      and 2 cross layers of its 32 + 32 (0.19 G params). It trains with
@@ -357,6 +369,10 @@ XL_HEADS, XL_HEAD_DIM = 4, 512        # mLSTM heads of d_model 1024 x 2
 # SSD logs, and on an H100 host the survivors then went on moving chunks
 # for minutes after the kill
 XL_DRAM = 4 << 30                     # ~0.43 GiB a server (~0.92 GB)
+# the SPMD step of 3c (``spmd_check``): 2 x 256 tokens, not the phase's
+# 8 x 2048 (the sLSTM loop's 2048 steps a layer, each a few ops dispatched
+# on the host, twice: the SPMD step and its eager twin)
+XL_SPMD_BATCH, XL_SPMD_SEQ = 2, 256
 # mLSTM forward: (shape (B, S, H, D), chunk, dtype, atol, rtol). The
 # reference's kernel tests (tests/test_kernels.py) with their tolerances in
 # f32 (the CUDA-core kernel); every bf16 case (the tensor-core kernel)
@@ -514,6 +530,15 @@ DS3_DRAM = 8 << 30
 # dO zero in their last 64 columns as models/mla.py pads V from 128
 DS3_TRAIN_BATCH, DS3_TRAIN_SEQ, DS3_TRAIN_STEPS = 4, 2048, 4
 DS3_V_PAD = 64
+# the SPMD step of part A (``spmd_check``): 2 x 1024 tokens, a quarter of
+# the phase's step beside run B's train state (each step's new state is
+# another 12.5 GB). Not 1 x 2048: DTensor cannot flatten a batch dim of one
+# row sharded over the data axis (its view propagation drops the
+# singleton), so the SPMD step needs two rows or more; the sharded serving
+# of part B and of 3g (``spmd_serve_check``): 4 prompts of 512 tokens and 8
+# decode steps
+DS3_SPMD_BATCH, DS3_SPMD_SEQ = 2, 1024
+SPMD_SERVE_BATCH, SPMD_SERVE_PROMPT, SPMD_SERVE_GEN = 4, 512, 8
 # head dim 192 in f32 (2e-5) and bf16 (the reference's 3e-2), MLA's heads
 # (as many kv heads as q heads): a causal case, a ragged Sk without a mask
 # (Sq != Sk, 200 keys ragged in the 64- and 32-key tiles) and a q offset
@@ -1785,7 +1810,7 @@ def _diagnose_restore(mgr, step, saved, like):
 
 
 def elastic_check(cfg, mgr, step, saved, like):
-    """The paper's restart onto a smaller mesh, on the card: in a world of
+    """The paper's restart onto a smaller mesh, on the card: in the world of
     one process on NCCL (``launch/mesh.py::init_single_process``), restore
     the step's checkpoint from ``mgr``'s buffer (after the kill, from the
     survivors' replicas) through ``elastic_restore`` onto
@@ -1794,138 +1819,144 @@ def elastic_check(cfg, mgr, step, saved, like):
     (``_digests``) bit for bit and every leaf's placements must be the rule
     set's (scalar and zero-size leaves replicated). Prints the leaves and
     bytes placed and the restore's seconds (host clock around
-    ``synchronize``) beside the card; the group is destroyed before it
-    returns."""
+    ``synchronize``) beside the card, then takes ``spmd_check`` and
+    ``spmd_serve_check`` from the restored state. ``main`` sets the group
+    up before phase 3c and destroys it after 3h."""
     import torch
-    import torch.distributed as dist
     from torch.distributed.tensor import Replicate
     from repro_torch.checkpoint import serializer as ser
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.elastic import elastic_restore, reshard_plan
-    from repro_torch.launch.mesh import init_single_process, make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import zip_axes
     from repro_torch.models.common import map_tree
     from repro_torch.models.registry import build_model
     from repro_torch.runtime.train_step import make_optimizer
 
-    init_single_process("cuda")
-    try:
-        mesh = make_host_mesh(1, 1, device_type="cuda")
-        model, optimizer = build_model(cfg), make_optimizer(cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        placed, ck_step = elastic_restore(
-            mgr, cfg, model, optimizer, mesh,
-            {"params": map_tree(torch.empty_like, like.params),
-             "opt_state": map_tree(torch.empty_like, like.opt_state)},
-            step)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        check(ck_step == step, f"elastic_restore restored step {ck_step}, "
-              f"not {step}")
-        rules, axes = reshard_plan(cfg, model, optimizer, mesh)
+    mesh = make_host_mesh(1, 1, device_type="cuda")
+    model, optimizer = build_model(cfg), make_optimizer(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed, ck_step = elastic_restore(
+        mgr, cfg, model, optimizer, mesh,
+        {"params": map_tree(torch.empty_like, like.params),
+         "opt_state": map_tree(torch.empty_like, like.opt_state)},
+        step)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(ck_step == step, f"elastic_restore restored step {ck_step}, "
+          f"not {step}")
+    rules, axes = reshard_plan(cfg, model, optimizer, mesh)
 
-        def rule_placements(a, leaf):
-            if leaf.dim() == 0 or leaf.numel() == 0:
-                want = [Replicate()] * mesh.ndim
-            else:
-                want = rules.sharding(a, tuple(leaf.shape))[1]
-            return list(leaf.placements) == want
+    def rule_placements(a, leaf):
+        if leaf.dim() == 0 or leaf.numel() == 0:
+            want = [Replicate()] * mesh.ndim
+        else:
+            want = rules.sharding(a, tuple(leaf.shape))[1]
+        return list(leaf.placements) == want
 
-        held = zip_axes(rule_placements, {"params": axes.params,
-                                          "opt_state": axes.opt_state},
-                        placed)
-        off = [name for name, ok in ser.tree_paths(held) if not ok]
-        check(not off, f"elastic restore: {len(off)} leaves are not placed "
-              f"as the rule set says: {off[:8]}")
-        local = {k: map_tree(lambda d: d.to_local(), v)
-                 for k, v in placed.items()}
-        got = _digests(local["params"], local["opt_state"])
-        bad = [name for name, d in saved.items() if got.get(name) != d]
-        check(list(got) == list(saved) and not bad, f"elastic restore: "
-              f"{len(bad)} leaves differ from the saved state {bad[:8]}")
-        leaves = ser.tree_paths(local)
-        nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
-        shard = sum(any(not p.is_replicate() for p in d.placements)
-                    for _, d in ser.tree_paths(placed))
-        print(f"[elastic] {cfg.name}: elastic_restore of the step-{step} "
-              f"checkpoint from the burst buffer's survivors onto a "
-              f"(data=1, model=1) mesh over NCCL: {len(leaves)} leaves, "
-              f"{nbytes} bytes ({nbytes / 1e9:.3f} GB) placed in "
-              f"{secs:.3f}s (host clock around synchronize); every leaf "
-              f"bit for bit the saved state, every placement the rule "
-              f"set's ({shard} leaves sharded, {len(leaves) - shard} "
-              f"replicated); {card_line()}", flush=True)
-        del local
-        spmd_check(cfg, model, optimizer, rules, axes, placed, step + 1)
-        host_memory(f"{cfg.name}: the SPMD train step's check")
-        spmd_serve_check(cfg, model, rules, placed["params"])
-        host_memory(f"{cfg.name}: the SPMD serving check")
-        del placed
-    finally:
-        dist.destroy_process_group()
+    held = zip_axes(rule_placements, {"params": axes.params,
+                                      "opt_state": axes.opt_state},
+                    placed)
+    off = [name for name, ok in ser.tree_paths(held) if not ok]
+    check(not off, f"elastic restore: {len(off)} leaves are not placed "
+          f"as the rule set says: {off[:8]}")
+    local = {k: map_tree(lambda d: d.to_local(), v)
+             for k, v in placed.items()}
+    got = _digests(local["params"], local["opt_state"])
+    bad = [name for name, d in saved.items() if got.get(name) != d]
+    check(list(got) == list(saved) and not bad, f"elastic restore: "
+          f"{len(bad)} leaves differ from the saved state {bad[:8]}")
+    leaves = ser.tree_paths(local)
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    shard = sum(any(not p.is_replicate() for p in d.placements)
+                for _, d in ser.tree_paths(placed))
+    print(f"[elastic] {cfg.name}: elastic_restore of the step-{step} "
+          f"checkpoint from the burst buffer's survivors onto a "
+          f"(data=1, model=1) mesh over NCCL: {len(leaves)} leaves, "
+          f"{nbytes} bytes ({nbytes / 1e9:.3f} GB) placed in "
+          f"{secs:.3f}s (host clock around synchronize); every leaf "
+          f"bit for bit the saved state, every placement the rule "
+          f"set's ({shard} leaves sharded, {len(leaves) - shard} "
+          f"replicated); {card_line()}", flush=True)
+    del local
+    spmd_check(cfg, model, optimizer, rules, axes, placed, step + 1,
+               batch=SC_BATCH, seq=SC_SEQ,
+               launches={fa.flash_attention: _layers(cfg, "attn"),
+                         fa.flash_attention_bwd: _layers(cfg, "attn")},
+               source="the elastic-restored state (the checkpoint run B "
+                      "resumed from)")
+    host_memory(f"{cfg.name}: the SPMD train step's check")
+    spmd_serve_check(cfg, model, rules, placed["params"], batch=BATCH,
+                     prompt=PROMPT, gen=GEN, layers=_layers(cfg, "attn"),
+                     source="the elastic-restored DTensor params")
+    host_memory(f"{cfg.name}: the SPMD serving check")
+    del placed
 
 
-def spmd_check(cfg, model, optimizer, rules, axes, placed, step):
-    """The SPMD train step on the card, from ``elastic_check``'s restored
-    DTensor state ``placed`` (the checkpoint run B resumed from): one step
-    of ``make_train_step`` with ``train_loop``'s accumulation (1) under
-    ``use_rules(rules)``, on the batch run B trained on at ``step`` placed
-    by ``batch_axes``; then the eager step from the same local tensors on
-    the same batch. The SPMD state's every leaf must be in the rule set's
-    placements (scalar and zero-size leaves replicated) and bit for bit
-    the eager state's (``_digests``), the losses and grad norms equal, and
-    each step must launch the flash forward and backward once a layer
-    (the SPMD step's through ``local_map``: a DTensor reaching a kernel
-    wrapper raises). Prints each step's seconds (host clock around
-    ``synchronize``; the SPMD step's first call includes DTensor's
-    sharding propagation on the host), the leaves and bytes, beside the
-    card."""
+def spmd_check(cfg, model, optimizer, rules, axes, placed, step, *, batch,
+               seq, launches, source):
+    """The SPMD train step on the card, from a DTensor train state
+    ``placed`` on ``rules``' mesh (``source`` names it): one step of
+    ``make_train_step`` with ``train_loop``'s accumulation (1) under
+    ``use_rules(rules)``, on the pipeline's batch ``step`` of ``batch`` x
+    ``seq`` tokens placed by ``batch_axes``; then the eager step from the
+    same local tensors on the same batch. The SPMD state's every leaf must
+    be in the rule set's placements (scalar and zero-size leaves
+    replicated) and bit for bit the eager state's (``_digests``; the SPMD
+    state is reduced to its digests and freed before the eager step runs),
+    the losses and grad norms equal, and each step must launch each
+    kernel of ``launches`` (its launch-counting wrapper -> launches a
+    step) that many times and no other kernel (the SPMD step's through
+    ``local_map``: a DTensor reaching a kernel wrapper raises). Prints each
+    step's seconds (host clock around ``synchronize``; the SPMD step's
+    first call includes DTensor's sharding propagation on the host), the
+    leaves and bytes, beside the card."""
     import torch
     from torch.distributed.tensor import Replicate
     from repro_torch.checkpoint import serializer as ser
     from repro_torch.data.pipeline import SyntheticLMPipeline
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.sharding import (batch_axes, place_tree,
                                              use_rules, zip_axes)
     from repro_torch.launch.train import batch_to
     from repro_torch.models.common import map_tree
     from repro_torch.runtime.train_step import TrainState, make_train_step
 
-    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=SC_SEQ,
-                               global_batch=SC_BATCH,
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch,
                                enc_seq=cfg.encoder_seq,
                                enc_dim=cfg.encoder_dim)
     pipe.load_state_dict({**pipe.state_dict(), "step": step})
-    batch = batch_to(next(pipe), "cuda")
+    batch_t = batch_to(next(pipe), "cuda")
     step_fn = make_train_step(cfg, model, optimizer)
-    kernels = (fa.flash_attention, fa.flash_attention_bwd)
-    layers = _layers(cfg, "attn")
+    kernels = _kernels()
+    want = {fn.__name__: launches.get(fn, 0) for fn in kernels}
 
     def run(state, batch, rules=None):
-        before = [fn.launches for fn in kernels]
+        before = {fn.__name__: fn.launches for fn in kernels}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with use_rules(rules):
             new, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        ran = [fn.launches - b for fn, b in zip(kernels, before)]
-        check(ran == [layers, layers], f"the {'SPMD' if rules else 'eager'}"
-              f" step launched the flash forward and backward {ran} times, "
-              f"not once a layer ({layers})")
+        ran = {fn.__name__: fn.launches - before[fn.__name__]
+               for fn in kernels}
+        check(ran == want, f"the {'SPMD' if rules else 'eager'} step "
+              f"launched {ran}, not {want}")
         return new, metrics, secs
 
     def rule_placements(a, leaf):
-        want = ([Replicate()] * rules.mesh.ndim
-                if leaf.dim() == 0 or leaf.numel() == 0
-                else rules.sharding(a, tuple(leaf.shape))[1])
-        return list(leaf.placements) == want
+        want_pl = ([Replicate()] * rules.mesh.ndim
+                   if leaf.dim() == 0 or leaf.numel() == 0
+                   else rules.sharding(a, tuple(leaf.shape))[1])
+        return list(leaf.placements) == want_pl
 
-    host_step(f"{cfg.name}: SPMD train step from the elastic-restored state")
+    host_step(f"{cfg.name}: SPMD train step from {source}")
     new, metrics, spmd_s = run(TrainState(placed["params"],
                                           placed["opt_state"]),
-                               place_tree(rules, batch_axes(batch), batch),
-                               rules)
+                               place_tree(rules, batch_axes(batch_t),
+                                          batch_t), rules)
     held = zip_axes(rule_placements, {"params": axes.params,
                                       "opt_state": axes.opt_state},
                     {"params": new.params, "opt_state": new.opt_state})
@@ -1938,12 +1969,13 @@ def spmd_check(cfg, model, optimizer, rules, axes, placed, step):
     spmd_metrics = {k: float(v.to_local()) for k, v in metrics.items()}
     leaves = ser.tree_paths(local)
     nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
-    del new, metrics, local
+    n_leaves = len(leaves)
+    del new, metrics, local, leaves
 
     host_step(f"{cfg.name}: the eager step from the same local tensors")
     eager_state = TrainState(*(map_tree(lambda d: d.to_local(), placed[k])
                                for k in ("params", "opt_state")))
-    new, metrics, eager_s = run(eager_state, batch)
+    new, metrics, eager_s = run(eager_state, batch_t)
     eager = _digests(new.params, new.opt_state)
     eager_metrics = {k: float(v) for k, v in metrics.items()}
     del new, metrics, eager_state
@@ -1952,34 +1984,68 @@ def spmd_check(cfg, model, optimizer, rules, axes, placed, step):
           f"leaves differ from the eager step's {bad[:8]}")
     check(spmd_metrics == eager_metrics, f"SPMD step's loss and grad norm "
           f"{spmd_metrics} != the eager step's {eager_metrics}")
-    print(f"[spmd] {cfg.name}: the SPMD train step from the elastic-"
-          f"restored DTensor state on the (data=1, model=1) NCCL mesh, step "
-          f"{step} on run B's batch ({SC_BATCH} x {SC_SEQ} tokens): "
-          f"{spmd_s:.3f}s (first call, with DTensor's sharding "
-          f"propagation), the eager step from the same local tensors "
-          f"{eager_s:.3f}s (host clock around synchronize); loss "
-          f"{spmd_metrics['loss']:.6f}, grad norm "
-          f"{spmd_metrics['grad_norm']:.6f}; {len(leaves)} leaves, {nbytes} "
+    ran = ", ".join(f"{name} {n}" for name, n in want.items() if n)
+    print(f"[spmd] {cfg.name}: the SPMD train step from {source} on the "
+          f"(data=1, model=1) NCCL mesh, step {step} of the pipeline "
+          f"({batch} x {seq} tokens): {spmd_s:.3f}s (first call, with "
+          f"DTensor's sharding propagation), the eager step from the same "
+          f"local tensors {eager_s:.3f}s (host clock around synchronize); "
+          f"loss {spmd_metrics['loss']:.6f}, grad norm "
+          f"{spmd_metrics['grad_norm']:.6f}; {n_leaves} leaves, {nbytes} "
           f"bytes ({nbytes / 1e9:.3f} GB), every leaf bit for bit the eager "
-          f"step's and in the rule set's placements; flash forward and "
-          f"backward launched {layers} + {layers} times in each step; "
-          f"{card_line()}", flush=True)
+          f"step's and in the rule set's placements; launched in each step: "
+          f"{ran}; {card_line()}", flush=True)
 
 
-def spmd_serve_check(cfg, model, rules, params):
-    """Sharded serving on the card, from ``elastic_check``'s restored
-    DTensor params (placed by ``param_axes``): slice 1's traffic, one batch
-    of BATCH prompts of PROMPT tokens drawn from the seed and GEN decode
-    steps, through ``make_prefill`` / ``make_decode_step`` with the rule
-    set (the cache from ``init_cache(..., rules=)``, placed by
-    ``cache_axes``; the tokens placed by ``batch_axes``); then the same
+def spmd_check_from(cfg, state, *, step, batch, seq, launches, source):
+    """``spmd_check`` from a plain train state on the card: the state placed
+    by ``state_logical_axes`` on a (data=1, model=1) mesh (a world of one
+    places a tensor without copying it), then the SPMD step and its eager
+    twin."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import RuleSet, place_tree
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.train_step import (make_optimizer,
+                                                state_logical_axes)
+    model, optimizer = build_model(cfg), make_optimizer(cfg)
+    rules = RuleSet(make_host_mesh(1, 1, device_type="cuda"))
+    axes = state_logical_axes(cfg, model, optimizer)
+    placed = place_tree(rules, {"params": axes.params,
+                                "opt_state": axes.opt_state},
+                        {"params": state.params,
+                         "opt_state": state.opt_state})
+    spmd_check(cfg, model, optimizer, rules, axes, placed, step, batch=batch,
+               seq=seq, launches=launches, source=source)
+
+
+def spmd_serve_check_from(cfg, model, params, **kw):
+    """``spmd_serve_check`` from plain params on the card, placed by
+    ``param_axes`` on a (data=1, model=1) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import RuleSet, place_tree
+    rules = RuleSet(make_host_mesh(1, 1, device_type="cuda"))
+    spmd_serve_check(cfg, model, rules,
+                     place_tree(rules, model.param_axes(), params),
+                     batch=SPMD_SERVE_BATCH, prompt=SPMD_SERVE_PROMPT,
+                     gen=SPMD_SERVE_GEN, **kw)
+
+
+def spmd_serve_check(cfg, model, rules, params, *, batch, prompt, gen,
+                     layers, source):
+    """Sharded serving on the card, from DTensor params placed by
+    ``param_axes`` on ``rules``' mesh (``source`` names them): one batch
+    of ``batch`` prompts of ``prompt`` tokens drawn from the seed and
+    ``gen`` decode steps, through ``make_prefill`` / ``make_decode_step``
+    with the rule set (the cache from ``init_cache(..., rules=)``, placed
+    by ``cache_axes``; the tokens placed by ``batch_axes``); then the same
     prefill and decode steps eagerly from the same local tensors, each
     step fed the SPMD run's greedy token. Every step's logits must be bit
     for bit the eager run's, the greedy tokens equal, every cache leaf in
     the rule set's placements after the prefill and after the last decode
     step (and its local tensor the eager cache bit for bit), and the flash
-    forward must launch once a layer in each prefill (the SPMD one through
-    ``local_map``) and not at all in decode. Prints the prefill's seconds
+    forward must launch ``layers`` times in each prefill (the SPMD one
+    through ``local_map``) and not at all in decode, and no other kernel
+    launch in either run. Prints the prefill's seconds
     (the SPMD one's first call includes DTensor's sharding propagation on
     the host) and the decode's tokens/s (host clock around
     ``synchronize``) of both runs, beside the card."""
@@ -1992,11 +2058,11 @@ def spmd_serve_check(cfg, model, rules, params):
                                                 make_decode_step,
                                                 make_prefill)
 
-    layers = _layers(cfg, "attn")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 1)
-    prompts = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT),
-                            generator=gen, device="cuda")
+    draw = torch.Generator(device="cuda")
+    draw.manual_seed(SEED + 1)
+    prompts = torch.randint(1, cfg.vocab_size, (batch, prompt),
+                            generator=draw, device="cuda")
+    kernels = [fn for fn in _kernels() if fn is not fa.flash_attention]
 
     def placed_as_rules(cache):
         held = zip_axes(lambda a, leaf: list(leaf.placements)
@@ -2008,13 +2074,14 @@ def spmd_serve_check(cfg, model, rules, params):
         return x.to_local() if hasattr(x, "to_local") else x
 
     def serve(params, cache, forced=None, sharded=False):
-        """Prefill, then GEN decode steps (each on the step's own greedy
+        """Prefill, then ``gen`` decode steps (each on the step's own greedy
         token, or on ``forced``'s): (logits, tokens, cache, prefill
         seconds, decode seconds)."""
         on = rules if sharded else None
         prefill = make_prefill(cfg, model, on)
         decode = make_decode_step(cfg, model, on)
         logits_all, toks = [], []
+        others = [fn.launches for fn in kernels]
         with torch.no_grad():
             before = fa.flash_attention.launches
             torch.cuda.synchronize()
@@ -2025,29 +2092,32 @@ def spmd_serve_check(cfg, model, rules, params):
             ran = fa.flash_attention.launches - before
             check(ran == layers, f"the {'SPMD' if sharded else 'eager'} "
                   f"prefill launched the flash forward {ran} times, not "
-                  f"once a layer ({layers})")
+                  f"{layers}")
             if sharded:
                 off = placed_as_rules(cache)
                 check(not off, f"SPMD prefill: {len(off)} cache leaves "
                       f"left the rule set's placements: {off[:8]}")
             before = fa.flash_attention.launches
             t0 = time.perf_counter()
-            for i in range(GEN + 1):
+            for i in range(gen + 1):
                 logits_all.append(local(logits))
                 toks.append(local(greedy_token(cfg, logits)))
-                if i == GEN:
+                if i == gen:
                     break
                 tok = toks[-1] if forced is None else forced[i]
-                logits, cache = decode(params, cache, tok, PROMPT + i)
+                logits, cache = decode(params, cache, tok, prompt + i)
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0
             ran = fa.flash_attention.launches - before
             check(ran == 0, f"the {'SPMD' if sharded else 'eager'} decode "
                   f"launched the flash forward {ran} times, not 0")
+        check([fn.launches for fn in kernels] == others, f"the "
+              f"{'SPMD' if sharded else 'eager'} serve launched another "
+              f"kernel than the flash forward")
         return logits_all, toks, cache, prefill_s, decode_s
 
-    host_step(f"{cfg.name}: SPMD serving from the elastic-restored params")
-    spmd = serve(params, model.init_cache(BATCH, PROMPT + GEN,
+    host_step(f"{cfg.name}: SPMD serving from {source}")
+    spmd = serve(params, model.init_cache(batch, prompt + gen,
                                           device="cuda", rules=rules),
                  sharded=True)
     off = placed_as_rules(spmd[2])
@@ -2055,7 +2125,7 @@ def spmd_serve_check(cfg, model, rules, params):
           f"set's placements: {off[:8]}")
     host_step(f"{cfg.name}: eager serving from the same local tensors")
     eager = serve(map_tree(local, params),
-                  model.init_cache(BATCH, PROMPT + GEN, device="cuda"),
+                  model.init_cache(batch, prompt + gen, device="cuda"),
                   forced=spmd[1])
     bad = [i for i, (a, b) in enumerate(zip(spmd[0], eager[0]))
            if not torch.equal(a, b)]
@@ -2070,17 +2140,17 @@ def spmd_serve_check(cfg, model, rules, params):
           f"eager run's")
     check(all(torch.isfinite(t).all() for t in spmd[0]),
           "SPMD serving: non-finite logits")
-    tokens = BATCH * GEN
-    print(f"[spmd-serve] {cfg.name}: sharded serving from the elastic-"
-          f"restored DTensor params on the (data=1, model=1) NCCL mesh, "
-          f"{BATCH} prompts of {PROMPT} tokens and {GEN} decode steps (cache "
-          f"of {PROMPT + GEN} placed by cache_axes, tokens by batch_axes): "
+    tokens = batch * gen
+    print(f"[spmd-serve] {cfg.name}: sharded serving from {source} on the "
+          f"(data=1, model=1) NCCL mesh, "
+          f"{batch} prompts of {prompt} tokens and {gen} decode steps (cache "
+          f"of {prompt + gen} placed by cache_axes, tokens by batch_axes): "
           f"prefill {spmd[3]:.3f}s (first call, with DTensor's sharding "
           f"propagation), decode {tokens / spmd[4]:.1f} tok/s "
           f"({spmd[4]:.3f}s); the eager run from the same local tensors: "
           f"prefill {eager[3]:.3f}s, decode {tokens / eager[4]:.1f} tok/s "
           f"({eager[4]:.3f}s) (host clock around synchronize); all "
-          f"{GEN + 1} steps' logits and greedy tokens bit for bit the eager "
+          f"{gen + 1} steps' logits and greedy tokens bit for bit the eager "
           f"run's, every cache leaf in the rule set's placements after the "
           f"prefill and the last decode step; flash forward launched "
           f"{layers} time(s) in each prefill and 0 in decode; "
@@ -3226,6 +3296,10 @@ def llama4_path(device):
           f"{2 * t['ckpt_bytes'] / 4 / 2**30:.2f} GiB a server",
           flush=True)
     serving_numbers(cfg, t, model, params, prompts, LL_GEN)
+    spmd_serve_check_from(cfg, model, params,
+                          layers=_layers(cfg, "moe_local")
+                          + _layers(cfg, "moe_nope"),
+                          source="the restored params")
     return launches
 
 
@@ -3465,6 +3539,14 @@ def deepseek_v3_path(device):
                                  DS3_GEN, _layers(cfg, "mla_dense"))
     check(launches_a["flash_attention"] == 6, f"{launches_a}")
     del state_a
+    # the trunk's layer and the MTP layer: a flash forward and backward each
+    from repro_torch.kernels import flash_attention as fa
+    spmd_check_from(cfg, state_b, step=DS3_TRAIN_STEPS, batch=DS3_SPMD_BATCH,
+                    seq=DS3_SPMD_SEQ,
+                    launches={fa.flash_attention: mla,
+                              fa.flash_attention_bwd: mla},
+                    source="run B's state (restored from the buffer)")
+    host_memory(f"{full.name} part A: the SPMD train step's check")
     prefill_ms, decode_tps = time_serving(cfg, model, state_b.params,
                                           prompts[0], DS3_GEN)
     print(f"[numbers] {cfg.name} part A: prefill {prefill_ms:.2f} ms "
@@ -3522,6 +3604,8 @@ def deepseek_v3_path(device):
     check(launches_b == want and launches_b["flash_attention"] == 16,
           f"launch counts {launches_b} != {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    spmd_serve_check_from(cfg, model, params, layers=layers,
+                          source="the params drawn on the card")
     prefill_ms, decode_tps = time_serving(cfg, model, params, prompts[0],
                                           DS3_GEN)
     print(f"[numbers] {cfg.name} part B: params drawn on the card in "
@@ -3995,6 +4079,11 @@ def main():
     rg_launches, rg_train_launches = recurrentgemma_path(device)
     host_memory("phase 3b", phase_end=True)
 
+    # the world of one process on NCCL, for the SPMD checks of phases 3c,
+    # 3d (with the elastic restore), 3g and 3h
+    from repro_torch.launch.mesh import init_single_process
+    init_single_process("cuda")
+
     # phase 3c: slice 3's path, xlstm-350m training through a server kill;
     # depth cut to XL_SEGMENTS
     full = get_config("xlstm-350m")
@@ -4010,10 +4099,16 @@ def main():
           f"{full.num_layers} -> {xl_cfg.num_layers}; "
           f"{xl_cfg.param_count()} params; batch {XL_BATCH} x {XL_SEQ} "
           f"tokens, {XL_STEPS} steps", flush=True)
-    xl_launches, _ = training_path(
+    xl_launches, (_, xl_state) = training_path(
         xl_cfg, device, batch=XL_BATCH, seq=XL_SEQ, steps=XL_STEPS,
         dram_capacity=XL_DRAM, per_step={"mlstm": _layers(xl_cfg, "mlstm")},
-        int8=False, timing=False)
+        int8=False, timing=False, keep_states=True)
+    from repro_torch.kernels import mlstm as mlstm_kernel
+    spmd_check_from(xl_cfg, xl_state, step=XL_STEPS, batch=XL_SPMD_BATCH,
+                    seq=XL_SPMD_SEQ,
+                    launches={mlstm_kernel.mlstm: _layers(xl_cfg, "mlstm")},
+                    source="run B's state (restored after the kill)")
+    del xl_state
     host_memory("phase 3c", phase_end=True)
 
     # phase 3d: slice 4's path, starcoder2-3b training through a server
@@ -4105,6 +4200,8 @@ def main():
     # phase 3h: slice 8's path, deepseek-v3-671b at full width
     ds3_launches, ds3_train_launches = deepseek_v3_path(device)
     host_memory("phase 3h", phase_end=True)
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
     # phase 3i: slices 9 and 11, whisper-large-v3 at full width
     wh_launches, wh_train_launches, wh_by_shape = whisper_path(device)

@@ -94,10 +94,19 @@ def shard_map(fn, args, axes, outs, partial_grads=()):
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_offset=0, chunk=512):
-    """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) -> (B,Sq,H,D)."""
+    """q: (B,Sq,H,D); k: (B,Sk,KV,D); v: (B,Sk,KV,Dv), Dv <= D ->
+    (B,Sq,H,Dv). A v narrower than q / k (MLA's) is zero-padded to D for
+    the kernel and the output sliced back (on DTensors, on each rank's
+    local tensors)."""
     if sharding.is_dtensor(q):
         return _flash_sharded(q, k, v, causal=causal, window=window,
                               softcap=softcap, q_offset=q_offset, chunk=chunk)
+    dv = v.shape[-1]
+    if dv < q.shape[-1]:
+        v = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset,
+                               chunk=chunk)[..., :dv]
     if q.is_cuda:
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
@@ -128,8 +137,8 @@ def _flash_sharded(q, k, v, *, q_offset, **opts):
         if rules.spec(heads, k.shape)[2] != head_axis:
             # each rank's q heads need their own group's k / v heads
             g = h // kvh
-            k, v = (t[:, :, :, None].expand(b, sk, kvh, g, d)
-                    .reshape(b, sk, h, d) for t in (k, v))
+            k, v = (t[:, :, :, None].expand(b, sk, kvh, g, t.shape[-1])
+                    .reshape(b, sk, h, t.shape[-1]) for t in (k, v))
     elif seq_axis is not None and sq > 1:
         # each rank's block of queries; its share of dk / dv is partial
         q_axes = cp
@@ -141,7 +150,7 @@ def _flash_sharded(q, k, v, *, q_offset, **opts):
         return (flash_attention(ql, kl, vl, q_offset=q_offset, **opts),)
 
     return shard_map(local, (q, k, v), (q_axes, kv_axes, kv_axes),
-                     [(q_axes, q.shape)], partial)[0]
+                     [(q_axes, q.shape[:-1] + v.shape[-1:])], partial)[0]
 
 
 class _PlainFlashFunction(torch.autograd.Function):
@@ -340,7 +349,9 @@ def _mlstm_sharded(q, k, v, log_f, log_i, state, chunk):
     def local(ql, kl, vl, fl, il, cl, nl, ml):
         st = None if cl is None else (cl, nl, ml)
         hl, (c2, n2, m2) = mlstm(ql, kl, vl, fl, il, st, chunk)
-        return hl, c2, n2, m2
+        # a DTensor's ops read its local tensor as laid out contiguously
+        # (the chunked form's output is a permuted view)
+        return hl.contiguous(), c2, n2, m2
 
     hs, c2, n2, m2 = shard_map(
         local, (q, k, v, log_f, log_i, c, n, m),

@@ -35,7 +35,7 @@ optimizer code joins the mesh through ``replicate_like``, the kernels run
 on each rank's local shards (``kernels/ops.py`` through ``local_map``),
 and the optimizer hands back each leaf in its input's placements
 (``placed_like``). Sharded serving (``runtime/serve_step.py``) takes params
-placed by ``param_axes`` and a cache made by ``zeros_tree`` with
+placed by ``param_axes`` and a cache made by ``full_tree`` with
 ``cache_axes``, whose sequence dim the model axis splits: a cache write
 goes into each rank's own block (``write_slice``), and the step returns
 the cache in those placements (``place_tree`` of a placed tree moves
@@ -183,6 +183,16 @@ def active_rules() -> Optional[RuleSet]:
     return _ACTIVE.get()
 
 
+def batch_mesh_axes(shape) -> Tuple[str, ...]:
+    """The mesh axes over which the active rule set splits dim 0 (the
+    batch) of a tensor of ``shape``: their ranks hold other rows, and so
+    each gives only its rows' part of a gradient they share."""
+    entry = active_rules().spec(("batch",) + (None,) * (len(shape) - 1),
+                                tuple(shape))[0]
+    return entry if isinstance(entry, tuple) else \
+        (() if entry is None else (entry,))
+
+
 def constrain(x, logical_axes: Sequence[Optional[str]]):
     """``x`` outside a rule set. Inside one, a DTensor is redistributed to
     the resolved placements (divisibility-checked against its global
@@ -273,25 +283,38 @@ def place_tree(rules: RuleSet, axes_tree, tree):
     return zip_axes(place, axes_tree, tree)
 
 
-def zeros_tree(rules: RuleSet, axes_tree, tree):
-    """DTensors of zeros with the shapes and dtypes of ``tree``'s leaves
-    (tensors on the ``meta`` device will do), in the placements of
+def full_tree(rules: RuleSet, axes_tree, tree, values):
+    """DTensors with the shapes and dtypes of ``tree``'s leaves (tensors on
+    the ``meta`` device will do), each filled with the number at its place
+    in ``values`` (a tree of the same structure), in the placements of
     ``axes_tree``'s leaves, on the mesh's device type: each rank allocates
     only its own block, and nothing is sent (a serving cache by
     ``cache_axes``)."""
     from torch.distributed.tensor import DTensor
 
-    def zeros(axes, leaf):
+    def full(axes, leaf_value):
+        leaf, value = leaf_value
         placements = rules.sharding(axes, tuple(leaf.shape))[1]
         _, sizes = local_block(rules.mesh, placements, leaf.shape)
-        local = torch.zeros(sizes, dtype=leaf.dtype,
-                            device=rules.mesh.device_type)
+        local = torch.full(sizes, value, dtype=leaf.dtype,
+                           device=rules.mesh.device_type)
         return DTensor.from_local(local, rules.mesh, placements,
                                   run_check=False, shape=leaf.shape,
                                   stride=torch.empty(leaf.shape,
                                                      device="meta").stride())
 
-    return zip_axes(zeros, axes_tree, tree)
+    return zip_axes(full, axes_tree, _pairs(tree, values))
+
+
+def _pairs(tree, values):
+    """The tree of (leaf, value) pairs of two trees of one structure
+    (nested dicts and tuples); module-level recursion."""
+    if isinstance(tree, dict):
+        return {k: _pairs(tree[k], values[k]) for k in tree}
+    if isinstance(tree, tuple):
+        kids = [_pairs(t, v) for t, v in zip(tree, values)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else tuple(kids)
+    return (tree, values)
 
 
 # ---------------------------------------------------------------------------

@@ -174,9 +174,8 @@ def _make_mla_kind(ffn):
                                              ext["positions"])
         x = _ffn(cfg, p, x + h, ffn)
         # the latent cache from position 0
-        s = c_kv.shape[1]
-        cache["mla"]["c_kv"][:, :s] = c_kv
-        cache["mla"]["k_rope"][:, :s] = k_rope
+        sharding.write_slice(cache["mla"]["c_kv"], c_kv, 1, 0)
+        sharding.write_slice(cache["mla"]["k_rope"], k_rope, 1, 0)
         return x, cache
 
     return Kind(descs, apply, init_cache, decode, prefill)
@@ -444,8 +443,8 @@ def forward_with_mtp(cfg, params, tokens, enc_input=None):
     h = apply_norm(cfg, mp["h_norm"], h_final[:, :-1])
     e = apply_norm(cfg, mp["e_norm"], embed_tokens(
         cfg, params["embed"], tokens[:, 1:], positions))
-    hcat = torch.cat([h, e], dim=-1)
-    hm = torch.matmul(hcat, mp["proj"].to(hcat.dtype))
+    hm = sharding.constrain(_mtp_project(h, e, mp["proj"]),
+                            ("batch", None, None))
     # one more layer of the trunk's last kind, at positions 1 .. S-1
     last_kind = cfg.segments[-1][0][-1]
     hm = KINDS[last_kind].apply(cfg, _layer(mp["layer"], 0)["0"], hm,
@@ -455,14 +454,34 @@ def forward_with_mtp(cfg, params, tokens, enc_input=None):
     return logits, mtp_logits
 
 
+def _mtp_project(h, e, proj):
+    """[h ; e] (B, S, 2d) @ proj (2d, d). On DTensors each rank projects its
+    rows in plain torch (``kops.shard_map``, proj whole): DTensor's own
+    concatenation along the features gave the gradient a placement that
+    the embedding's backward could not take (torch 2.11)."""
+    if sharding.is_dtensor(h):
+        rows = ("batch", None, None)
+        return kops.shard_map(
+            lambda a, b, w: (_mtp_project(a, b, w),), (h, e, proj),
+            (rows, rows, (None, None)), [(rows, tuple(h.shape))],
+            partial_grads=[(2, a) for a in
+                           sharding.batch_mesh_axes(h.shape)])[0]
+    hcat = torch.cat([h, e], dim=-1)
+    return torch.matmul(hcat, proj.to(hcat.dtype))
+
+
 def init_cache(cfg, batch: int, max_seq: int, device="cuda", rules=None):
-    """The decode cache of every layer, zeros, stacked by segment. With a
+    """The decode cache of every layer, fresh (zeros; the xLSTM layers'
+    stabilizers m at NEG_INF), stacked by segment. With a
     rule set, DTensors placed by ``cache_axes`` on its mesh (``device`` is
     then the mesh's), each rank allocating only its own block."""
     if rules is not None:
         shapes = init_cache(cfg, batch, max_seq, "meta")
-        return sharding.zeros_tree(rules, sharding.cache_axes(cfg, shapes),
-                                   shapes)
+        # every leaf of a fresh cache holds one value: zeros, or NEG_INF
+        # (the mLSTM's and the sLSTM's stabilizer m)
+        values = map_tree(_fill_value, init_cache(cfg, 1, 1, "cpu"))
+        return sharding.full_tree(rules, sharding.cache_axes(cfg, shapes),
+                                  shapes, values)
     cache: Dict[str, Any] = {}
     for i, (unit, reps) in enumerate(cfg.segments):
         seg = {str(j): KINDS[k].init_cache(cfg, batch, max_seq, device)
@@ -470,6 +489,14 @@ def init_cache(cfg, batch: int, max_seq: int, device="cuda", rules=None):
         cache[f"seg{i}"] = map_tree(
             lambda a: a.expand((reps,) + a.shape).clone(), seg)
     return cache
+
+
+def _fill_value(leaf):
+    """The one value a fresh cache leaf holds."""
+    value = leaf.reshape(-1)[0]
+    if not bool((leaf == value).all()):
+        raise ValueError("a fresh cache leaf holds more than one value")
+    return value.item()
 
 
 def _placed_cache(cfg, cache):

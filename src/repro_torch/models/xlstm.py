@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.sharding import replicate_like
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import is_dtensor, replicate_like
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import P, apply_norm, cfg_dtype, norm_descs
 
@@ -80,6 +81,20 @@ def mlstm_descs(cfg):
     }
 
 
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor, on each rank's block (DTensor has no
+    strategy for its backward), in the placements it has, a partial sum
+    summed first."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(F.logsigmoid, out_placements=(pl,), in_placements=(pl,),
+                     device_mesh=x.device_mesh)(
+        x.redistribute(x.device_mesh, pl))
+
+
 def _mlstm_qkv(cfg, p, xn, conv_state=None):
     b, s, _ = xn.shape
     du = p["w_up_v"].shape[1]
@@ -93,7 +108,7 @@ def _mlstm_qkv(cfg, p, xn, conv_state=None):
     k = torch.matmul(c, p["wk"].to(xn.dtype))
     gates = torch.matmul(xn, p["w_if"].to(xn.dtype))
     log_i = gates[..., :h].float()
-    log_f = F.logsigmoid(gates[..., h:].float() + 3.0)
+    log_f = _logsigmoid(gates[..., h:].float() + 3.0)
     shp = (b, s, h, dh)
     return (q.reshape(shp), k.reshape(shp), v_path.reshape(shp),
             log_f, log_i, z, new_conv)
@@ -137,8 +152,19 @@ def decode_mlstm_block(cfg, p, x, cache):
                                  state=(cache["C"], cache["n"], cache["m"]))
     out = _mlstm_out(p, x, hseq, z)
     for key, val in (("C", C), ("n", n), ("m", m), ("conv", new_conv)):
-        cache[key].copy_(val)
+        _store(cache[key], val)
     return out, cache
+
+
+def _store(buf, val):
+    """``buf`` set to ``val`` in place through ``sharding.write_slice``:
+    on DTensors (a cache placed by ``cache_axes``) each rank copies its
+    own block, along a dim that no mesh axis splits where there is one."""
+    dim = 0
+    if is_dtensor(buf):
+        split = {p.dim for p in buf.placements if p.is_shard()}
+        dim = next((i for i in range(buf.dim()) if i not in split), 0)
+    sharding.write_slice(buf, val, dim, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -166,17 +192,46 @@ def slstm_descs(cfg):
 def _slstm_scan(cfg, p, gates_in, state):
     """gates_in: (B,S,4d) input contribution; sequential over S (a Python
     loop, the reference's ``lax.scan``). state: (c, n, m, h), each
-    (B,H,dh) f32. Returns (hs (B,S,d) f32, final state)."""
+    (B,H,dh) f32, or None for the zero state. Returns (hs (B,S,H,dh) f32,
+    final state). Under a rule set (DTensors) the loop runs through
+    ``kops.shard_map`` on each rank's block: batch over the data axes and
+    heads over the model axis where the rules give that (a head's
+    recurrence reads only its own block of ``w_rec``), so each step is
+    plain torch on local tensors."""
     b, s, _ = gates_in.shape
     h = cfg.num_heads
-    d = cfg.d_model
-    dh = d // h
-    w_rec = p["w_rec"].float()
+    dh = cfg.d_model // h
+    gates = gates_in.reshape(b, s, h, 4 * dh)
+    if is_dtensor(gates):
+        rows, g_axes = ("batch", "heads", None), ("batch", None, "heads", None)
+        st = (None,) * 4 if state is None else tuple(state)
+        out = kops.shard_map(
+            lambda g, w, *st: _slstm_loop(g, w, None if st[0] is None
+                                          else st),
+            (gates, p["w_rec"]) + st,
+            (g_axes, ("heads", None, None)) + (rows,) * 4,
+            [(g_axes, (b, s, h, dh))] + [(rows, (b, h, dh))] * 4,
+            # each rank's rows give their part of w_rec's gradient
+            partial_grads=[(1, a) for a in
+                           sharding.batch_mesh_axes(gates.shape)])
+        return out[0], tuple(out[1:])
+    hs, *state = _slstm_loop(gates, p["w_rec"], state)
+    return hs, tuple(state)
+
+
+def _slstm_loop(gates, w_rec, state):
+    """The sLSTM recurrence over gates (B,S,H,4dh) from ``state`` (c, n,
+    m, h) or, if None, the zero state: (hs (B,S,H,dh) f32, c, n, m, h)."""
+    b, s, h, dh4 = gates.shape
+    dh = dh4 // 4
+    w_rec = w_rec.float()
+    if state is None:
+        state = _slstm_zero_state((b, h, dh), gates.device)
     c, n, m, hprev = state
     hs = []
     for t in range(s):
         g_rec = torch.einsum("bhd,hdg->bhg", hprev, w_rec)
-        g = gates_in[:, t].reshape(b, h, 4 * dh).float() + g_rec
+        g = gates[:, t].float() + g_rec
         zi, ii, fi, oi = torch.split(g, dh, dim=-1)        # (B,H,dh)
         zt = torch.tanh(zi)
         ot = torch.sigmoid(oi)
@@ -191,22 +246,24 @@ def _slstm_scan(cfg, p, gates_in, state):
         hprev = ot * c / torch.clamp_min(n, 1e-6)
         m = m_new
         hs.append(hprev)
-    return torch.stack(hs, dim=1).reshape(b, s, d), (c, n, m, hprev)
+    return torch.stack(hs, dim=1), c, n, m, hprev
 
 
-def _slstm_init_state(cfg, batch, device):
-    """(c, n, m, h): four distinct tensors, as the cache updates them in
-    place."""
-    shape = (batch, cfg.num_heads, cfg.d_model // cfg.num_heads)
+def _slstm_zero_state(shape, device):
+    """(c, n, m, h) of ``shape``: four distinct tensors, as the cache
+    updates them in place."""
     z = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
     return (z(), z(), torch.full(shape, NEG_INF, dtype=torch.float32,
                                  device=device), z())
 
 
+def _slstm_init_state(cfg, batch, device):
+    return _slstm_zero_state(
+        (batch, cfg.num_heads, cfg.d_model // cfg.num_heads), device)
+
+
 def _slstm_out(cfg, p, x, hs):
-    hs = _groupnorm_heads(hs.reshape(x.shape[0], x.shape[1], cfg.num_heads,
-                                     -1))
-    hs = hs.reshape(x.shape).to(x.dtype)
+    hs = _groupnorm_heads(hs).reshape(x.shape).to(x.dtype)
     x = x + torch.matmul(hs, p["w_out"].to(x.dtype))
     xn2 = apply_norm(cfg, p["norm2"], x)
     gate = torch.matmul(xn2, p["w_ff_gate"].to(x.dtype))
@@ -217,8 +274,7 @@ def _slstm_out(cfg, p, x, hs):
 def apply_slstm_block(cfg, p, x):
     xn = apply_norm(cfg, p["norm"], x)
     g_in = torch.matmul(xn, p["w_in"].to(x.dtype))
-    hs, _ = _slstm_scan(cfg, p, g_in,
-                        _slstm_init_state(cfg, x.shape[0], x.device))
+    hs, _ = _slstm_scan(cfg, p, g_in, None)
     return _slstm_out(cfg, p, x, hs)
 
 
@@ -233,5 +289,5 @@ def decode_slstm_block(cfg, p, x, cache):
     g_in = torch.matmul(xn, p["w_in"].to(x.dtype))
     hs, state = _slstm_scan(cfg, p, g_in, cache["state"])
     for buf, val in zip(cache["state"], state):
-        buf.copy_(val)
+        _store(buf, val)
     return _slstm_out(cfg, p, x, hs), cache

@@ -226,7 +226,11 @@ def make_train_step(cfg, model, optimizer, *, accum_steps: int = 1,
 
     def loss_and_grads(leaves, params, micro):
         loss = loss_fn(params, micro)
-        return loss, torch.autograd.grad(loss, leaves)
+        # each gradient in its param's placements: partial sums over ranks
+        # are summed here, in the gradient's own dtype, before the
+        # accumulation dtype's rounding and the optimizer's nonlinear ops
+        return loss, [sharding.placed_like(g, p) for g, p in
+                      zip(torch.autograd.grad(loss, leaves), leaves)]
 
     def train_step(state: TrainState, batch):
         b = batch["inputs"].shape[0]

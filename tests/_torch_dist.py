@@ -282,8 +282,63 @@ def moe_worker(rank, out_dir, inputs_path, cases):
             outs[f"{name}/{how}_cols_agree"] = np.array(all(
                 torch.equal(blocks[i], blocks[coords.index((c[0], 0))])
                 for i, c in enumerate(coords)))
+        # gradients of sum(out * w) over DTensors placed by the rule set:
+        # twice (bit-identical), then with the sum over ``model``'s
+        # backward an all-reduce, which scales a col's part by ncols
+        w = torch.from_numpy(data[f"{name}/w"])
+        for run in ("", "_again", "_allreduce_bwd"):
+            if run == "_allreduce_bwd":
+                with _allreduce_backward():
+                    grads = _moe_grads(cfg, rules, p, x, w)
+            else:
+                grads = _moe_grads(cfg, rules, p, x, w)
+            outs.update({f"{name}/grad{run}/{k}": v.numpy()
+                         for k, v in grads.items()})
     if rank == 0:
         np.savez(os.path.join(out_dir, "moe_port.npz"), **outs)
+
+
+def _moe_grads(cfg, rules, p, x, w):
+    """``apply_moe`` under the rule set over x placed by the batch rule and
+    the params by their logical axes: the output and the gradients of
+    sum(out * w) (x's, then each param's by its path), gathered whole."""
+    from repro_torch.checkpoint.serializer import tree_paths
+    from repro_torch.launch.sharding import place_tree, use_rules
+    from repro_torch.models import moe
+    from repro_torch.models.common import map_tree
+    axes = map_tree(lambda d: d.axes, moe.moe_descs(cfg))
+    pd = map_tree(lambda t: t.detach().requires_grad_(True),
+                  place_tree(rules, axes, p))
+    xd = place_tree(rules, ("batch", None, None), x).detach() \
+        .requires_grad_(True)
+    with use_rules(rules):
+        out = moe.apply_moe(cfg, pd, xd)
+        (out * place_tree(rules, ("batch", None, None), w)).sum().backward()
+    got = {"out": out.full_tensor().detach(), "x": xd.grad.full_tensor()}
+    got.update({n: t.grad.full_tensor() for n, t in tree_paths(pd)})
+    return got
+
+
+class _allreduce_backward:
+    """Within: ``moe_sharded._SumOverModel``'s backward all-reduces the
+    gradient over ``model`` (the fault: every col's part counted ncols
+    times)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe_sharded
+        fn = moe_sharded._SumOverModel
+        self.saved = fn.backward
+
+        def backward(ctx, g):
+            g = g.clone()
+            dist.all_reduce(g, group=ctx.group)
+            return g, None
+
+        fn.backward = staticmethod(backward)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe_sharded
+        moe_sharded._SumOverModel.backward = self.saved
 
 
 def _moe_params(data, name):

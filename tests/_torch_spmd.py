@@ -31,15 +31,17 @@ CP_CASES = tuple(sorted(CP_OVERRIDES))
 BATCH, SEQ, ACCUM = 4, 32, 2
 
 
-def cases():
-    """[(name, arch, config overrides, mesh shape)]: every config on every
-    mesh, gemma3's and whisper's (1, 4) cases the context-parallel ones."""
+def cases(archs=ARCHS, overrides=CP_OVERRIDES, extra=()):
+    """[(name, arch, config overrides, mesh shape)]: every config of
+    ``archs`` on every mesh, with the ``overrides`` of a case by its name
+    (gemma3's and whisper's (1, 4) cases the context-parallel ones), then
+    the ``extra`` cases. A test file passes its own configs."""
     out = []
-    for arch in ARCHS:
+    for arch in archs:
         for shape in MESHES:
             name = f"{arch}@{shape[0]}x{shape[1]}"
-            out.append((name, arch, CP_OVERRIDES.get(name, {}), shape))
-    return out
+            out.append((name, arch, overrides.get(name, {}), shape))
+    return out + list(extra)
 
 
 def tokens(name: str, vocab: int) -> np.ndarray:

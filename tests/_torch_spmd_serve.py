@@ -36,14 +36,15 @@ CP_OVERRIDES = {"gemma3-4b@1x4": {"num_heads": 2, "num_kv_heads": 1},
 BATCH, PROMPT, GEN, MAX_SEQ = 4, 32, 8, 48
 
 
-def cases():
-    """[(name, arch, config overrides, mesh shape)]: every config on every
-    mesh."""
+def cases(archs=ARCHS, overrides=CP_OVERRIDES):
+    """[(name, arch, config overrides, mesh shape)]: every config of
+    ``archs`` on every mesh, with the ``overrides`` of a case by its name.
+    A test file passes its own configs."""
     out = []
-    for arch in ARCHS:
+    for arch in archs:
         for shape in MESHES:
             name = f"{arch}@{shape[0]}x{shape[1]}"
-            out.append((name, arch, CP_OVERRIDES.get(name, {}), shape))
+            out.append((name, arch, overrides.get(name, {}), shape))
     return out
 
 
@@ -125,7 +126,8 @@ def serve_worker(rank, out_dir, ref_path, case_list):
     calls, and every rank's block and placements of each cache leaf (after
     the prefill and after the last decode step), whether its local tensor
     is that block of the whole leaf, and whether it is still the storage
-    ``init_cache`` allocated."""
+    ``init_cache`` allocated; and rank 0's eager serve of the same params
+    and tokens (the port's plain run: its final cache)."""
     from repro_torch.checkpoint import serializer as ser
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import (RuleSet, cache_axes, place_tree,
@@ -190,6 +192,11 @@ def serve_worker(rank, out_dir, ref_path, case_list):
             "logits": [t.numpy() for t in logits],
             "tokens": [t.numpy() for t in toks],
             "cache": {n: d.full_tensor().numpy() for n, d in leaves}}
+        if rank == 0:
+            eager = serve(cfg, model, _params(cfg, model, init["params"]),
+                          prompts, enc, forced)
+            results[name]["plain_cache"] = {
+                n: d.numpy() for n, d in ser.tree_paths(eager[2])}
         dist.barrier()
     if rank == 0:
         with open(os.path.join(out_dir, "port_serve.pkl"), "wb") as f:

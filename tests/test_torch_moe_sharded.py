@@ -5,7 +5,16 @@ deepseek-v3-671b and llama4-scout-17b-a16e in f32, GRID mode (4 experts at
 top-2, one a device) and ROW mode (2 experts, one a data row, f split over
 ``model``), each at capacity factor 8 (no drops) and 1.0 (drops). Without
 drops the outputs also equal the port's dense ``apply_moe``; with no rule
-set, ``apply_moe`` is the sorted dispatch it was, bit for bit."""
+set, ``apply_moe`` is the sorted dispatch it was, bit for bit.
+
+The backward: over DTensors (x placed by the batch rule, the params by
+their logical axes) under the rule set, the gradients of sum(out * w) for
+x, the router, the experts and the shared expert against the reference's
+``jax.grad`` of ``apply_moe`` under its rules (GRID and ROW mode, with and
+without drops), and without drops against the port's dense ``apply_moe``
+under autograd. The same check fails when the sum over ``model``'s
+backward is an all-reduce (every col's part counted ncols times), and two
+runs are bit-identical (the combine sums in a fixed order)."""
 import json
 import os
 import subprocess
@@ -38,7 +47,7 @@ _REF = """
     from repro.configs.base import get_config, reduced
     from repro.launch.mesh import make_host_mesh
     from repro.launch.sharding import RuleSet, use_rules
-    from repro.models import moe_sharded
+    from repro.models import moe, moe_sharded
 
     cases = json.loads(sys.argv[3])
     data = np.load(sys.argv[1])
@@ -65,6 +74,19 @@ _REF = """
             sh = jax.jit(lambda p, x:
                          moe_sharded.apply_moe_sharded(cfg, p, x, rules))(p, x)
         out[name] = np.asarray(sh)
+        # jax.grad of sum(out * w) through apply_moe under the rules (a
+        # function of its own, traced with them active)
+        w = jnp.asarray(data[name + "/w"])
+        with jax.set_mesh(mesh), use_rules(rules):
+            gp, gx = jax.jit(jax.grad(
+                lambda p, x: jnp.sum(moe.apply_moe(cfg, p, x) * w),
+                argnums=(0, 1)))(p, x)
+        out[name + "/grad/x"] = np.asarray(gx)
+        for k, v in gp.items():
+            for sub, leaf in (v.items() if isinstance(v, dict)
+                              else ((None, v),)):
+                key = k if sub is None else k + "/" + sub
+                out[name + "/grad/" + key] = np.asarray(leaf)
     np.savez(sys.argv[2], **out)
 """
 
@@ -88,6 +110,9 @@ def _inputs(name, spec):
         else:
             draw(key, desc)
     out[f"{name}/x"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+        np.float32)
+    # the projection whose sum the gradient tests differentiate
+    out[f"{name}/w"] = rng.normal(size=(B, S, cfg.d_model)).astype(
         np.float32)
     return out
 
@@ -247,3 +272,95 @@ def test_apply_moe_without_rules_is_unchanged_bit_for_bit(arch, dtype):
     with use_rules(RuleSet(Mesh())):
         assert torch.equal(moe.apply_moe(cfg, p, x), got)
     assert all(leaf.dtype == dtype for leaf in tree_leaves(p))
+
+
+# ---------------------------------------------------------------------------
+# the backward over DTensors
+
+
+def _grad_err(got, want):
+    """The largest difference of two gradients, relative to the larger of
+    1 and the reference's largest entry."""
+    return float(np.max(np.abs(got - want))) / max(
+        1.0, float(np.max(np.abs(want))))
+
+
+def _grad_names(port, name, run=""):
+    prefix = f"{name}/grad{run}/"
+    return sorted(k[len(prefix):] for k in port.files
+                  if k.startswith(prefix) and k[len(prefix):] != "out")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_moe_backward_matches_reference(outputs, name):
+    """x's, the router's, every expert weight's and the shared expert's
+    gradient within TOL (relative to the largest entry, at least 1) of
+    the reference's ``jax.grad``; the forward over DTensors is the local
+    path's output."""
+    inputs, port, ref = outputs
+    names = _grad_names(port, name)
+    assert {"x", "router", "w_gate", "w_up", "w_down"} <= set(names)
+    assert any(n.startswith("shared/") for n in names) == \
+        bool(_torch_dist.moe_cfg(**CASES[name]).num_shared_experts)
+    for n in names:
+        got, want = port[f"{name}/grad/{n}"], ref[f"{name}/grad/{n}"]
+        assert got.shape == want.shape, n
+        assert _grad_err(got, want) < TOL, (n, _grad_err(got, want))
+    assert float(np.max(np.abs(port[f"{name}/grad/out"]
+                               - port[f"{name}/whole"]))) < TOL
+
+
+def _dense_grads(inputs, name):
+    cfg = _torch_dist.moe_cfg(**CASES[name])
+    p = _torch_dist._moe_params(inputs, name)
+    leaves = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                tree[k] = leaves[prefix + k] = v.clone().requires_grad_(True)
+
+    walk(p)
+    x = torch.from_numpy(inputs[f"{name}/x"]).requires_grad_(True)
+    w = torch.from_numpy(inputs[f"{name}/w"])
+    (moe._apply_moe(cfg, p, x) * w).sum().backward()
+    return {"x": x.grad.numpy(),
+            **{k: v.grad.numpy() for k, v in leaves.items()}}
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(CASES)
+                                  if CASES[n]["capacity_factor"] >= 8])
+def test_sharded_moe_backward_matches_dense_autograd(outputs, name):
+    """Without drops, the port's dense dispatch differentiated by autograd
+    gives the same gradients."""
+    inputs, port, _ = outputs
+    dense = _dense_grads(inputs, name)
+    assert sorted(dense) == _grad_names(port, name)
+    for n, want in dense.items():
+        err = _grad_err(port[f"{name}/grad/{n}"], want)
+        assert err < TOL, (n, err)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_allreduce_backward_fails_the_check(outputs, name):
+    """With the sum over ``model``'s backward an all-reduce (the trap: a
+    col's part of the gradient scaled by ncols = 2), the check of
+    ``test_sharded_moe_backward_matches_reference`` fails."""
+    _, port, ref = outputs
+    errs = {n: _grad_err(port[f"{name}/grad_allreduce_bwd/{n}"],
+                         ref[f"{name}/grad/{n}"])
+            for n in _grad_names(port, name, "_allreduce_bwd")}
+    assert max(errs.values()) > 100 * TOL, errs
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_moe_two_runs_are_bit_identical(outputs, name):
+    """The output and every gradient of two runs agree bit for bit: the
+    combine un-sorts and sums each token's slots in top-k rank order, no
+    scatter-add."""
+    _, port, _ = outputs
+    for n in _grad_names(port, name) + ["out"]:
+        np.testing.assert_array_equal(port[f"{name}/grad/{n}"],
+                                      port[f"{name}/grad_again/{n}"])

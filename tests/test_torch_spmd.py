@@ -150,7 +150,13 @@ _REF = """
             st_sh = rules.tree_shardings(state_logical_axes(cfg, model, opt),
                                          state)
             b_sh = rules.tree_shardings(batch_axes(batch), batch)
-            sharded, sm = jax.jit(step, in_shardings=(st_sh, b_sh),
+            # a step function of its own: jit's trace cache is keyed on the
+            # function, not on the active rule set, so the plain step's
+            # trace would run here without the rules (no constraint, no
+            # moe_sharded)
+            sharded_step = make_train_step(cfg, model, opt,
+                                           accum_steps=accum)
+            sharded, sm = jax.jit(sharded_step, in_shardings=(st_sh, b_sh),
                                   out_shardings=(st_sh, None))(state, batch)
         indices = {}
         for (n, sh), (_, leaf) in zip(
